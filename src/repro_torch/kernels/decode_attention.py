@@ -1,0 +1,98 @@
+"""Kernel 3: GQA flash-decode of one query token per row against a ring
+KV cache — one launch per layer of every decode step.
+
+For each (row, kv head), the G = H / KV query heads take a softmax over
+the S cache slots, masked by slot position: ``kv_pos >= 0``,
+``kv_pos <= q_pos`` and, with a window, ``kv_pos > q_pos - window``.
+
+Source note:
+
+* Replaces ``src/repro/kernels/decode_attention.py:
+  decode_attention_pallas`` (body ``_kernel``), reached through
+  ``ops.decode_attention``. (The reference's serving decode calls its
+  plain ``attention`` instead; the port's decode takes the kernel.)
+* Bound on the H100 at the main path's shapes (``llama3_2_1b``: H 32,
+  KV 8, dh 64, S = max_len 256, B = batch bucket <= 16, bf16): bytes —
+  about 1 flop per byte of the live slots' K/V. The main path fills at
+  most 79 of the 256 slots (a prompt bucket <= 64 plus 15 decode
+  steps), so at B = 16 it must read 2.6 MB per launch, 0.8 us at
+  3.35 TB/s.
+* Design: one block per (row, kv head) loops over S in 32-key tiles
+  staged once in shared memory for all G query heads, with the online
+  softmax in registers (the TPU grid's sequential S axis becomes that
+  loop); a tile whose slots are all masked is skipped before its K/V is
+  read (bit-for-bit the same result while any slot is live); bf16
+  loads, f32 scores and accumulation, output in q's dtype. Slot order
+  does not matter (positions, not slots, carry the mask).
+* Measured time: see ``PERF.md`` (``chip_smoke.py`` on the H100).
+
+CUDA source: ``csrc/decode_attention.cu``. On a CPU tensor the wrapper
+runs the plain version (``attention(chunk=0)`` on one query token, as
+the reference oracle has it); on a CUDA tensor it launches the kernel or
+raises.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.attention import attention
+from .build import check, library
+
+SUPPORTED_DH = (32, 64, 128)
+MAX_GROUP = 16
+
+
+def decode_attention_plain(q, k, v, q_pos, kv_pos, *, window: int = 0
+                           ) -> torch.Tensor:
+    """Plain version. q: (B, H, dh); k/v: (B, S, KV, dh); q_pos ()
+    int32; kv_pos (S,) int32 -> (B, H, dh) in q.dtype."""
+    o = attention(q[:, None], k, v, q_pos=q_pos.reshape(1), kv_pos=kv_pos,
+                  window=window, chunk=0)
+    return o[:, 0]
+
+
+def decode_attention(q, k, v, q_pos, kv_pos, *, window: int = 0
+                     ) -> torch.Tensor:
+    """Flash-decode one query token per row over a ring cache."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, q_pos, kv_pos, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    B, H, dh = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    if k.shape != (B, S, KV, dh) or v.shape != k.shape \
+            or q_pos.numel() != 1 or kv_pos.shape != (S,):
+        raise ValueError(
+            f"decode_attention: shape mismatch q {tuple(q.shape)} k "
+            f"{tuple(k.shape)} v {tuple(v.shape)} kv_pos "
+            f"{tuple(kv_pos.shape)}")
+    if H % KV or H // KV > MAX_GROUP or dh not in SUPPORTED_DH:
+        raise ValueError(f"decode_attention: unsupported H={H} KV={KV} "
+                         f"dh={dh} (dh in {SUPPORTED_DH}, H/KV <= "
+                         f"{MAX_GROUP})")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"decode_attention: unsupported dtype {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"decode_attention: {name} must be contiguous "
+                             f"{q.dtype} on {q.device}")
+    for name, t in (("q_pos", q_pos), ("kv_pos", kv_pos)):
+        if t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"decode_attention: {name} must be contiguous "
+                             f"int32 on {q.device}")
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    out = torch.empty_like(q)
+    rc = library().decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+        kv_pos.data_ptr(), out.data_ptr(), B, H, KV, S, dh, int(window),
+        scale, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(rc, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

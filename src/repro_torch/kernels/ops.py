@@ -1,0 +1,31 @@
+"""Public kernel entry points (the counterpart of the reference's
+``repro.kernels.ops``). Each wrapper launches a hand-written CUDA kernel
+on a CUDA tensor and runs its plain PyTorch version on a CPU tensor;
+each carries a ``launches`` counter that only real kernel launches bump.
+"""
+from .cosine_topk import cosine_scores, cosine_scores_plain
+from .decode_attention import decode_attention, decode_attention_plain
+from .expert_score import (expert_score, expert_score_folded,
+                           expert_score_plain, fold_bank)
+
+#: every kernel wrapper of the port, by name
+WRAPPERS = {
+    "expert_score": expert_score_folded,
+    "cosine_scores": cosine_scores,
+    "decode_attention": decode_attention,
+}
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+__all__ = ["WRAPPERS", "cosine_scores", "cosine_scores_plain",
+           "decode_attention", "decode_attention_plain", "expert_score",
+           "expert_score_folded", "expert_score_plain", "fold_bank",
+           "launches", "reset_launches"]

@@ -1,0 +1,87 @@
+"""Uniform model interface used by the serving path.
+
+Every family implements:
+  init(generator, device=None) -> params
+  prefill(params, batch, capacity=None) -> (last_logits (B, V), cache)
+  decode(params, cache, batch) -> (logits (B, V), cache)
+  init_cache(batch_size, capacity, device) -> zeroed cache
+"""
+from __future__ import annotations
+
+from .common import ArchConfig
+
+# families the reference registers, and the port slice that brings each
+_LATER = {
+    "moe": "A10 (MoE experts)",
+    "vlm": "A10 (VLM stub embeds)",
+    "rwkv": "A10 (RWKV6, with the wkv_step kernel)",
+    "hybrid": "A10 (Zamba2 hybrid)",
+    "encdec": "A10 (encoder-decoder)",
+}
+
+
+class BaseModel:
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+
+    def init(self, generator, device=None):
+        raise NotImplementedError
+
+    def prefill(self, params, batch, capacity=None):
+        raise NotImplementedError
+
+    def decode(self, params, cache, batch):
+        raise NotImplementedError
+
+    def init_cache(self, batch_size: int, capacity: int, device=None):
+        raise NotImplementedError
+
+    # -- protocols of later slices ------------------------------------------
+    @property
+    def supports_paged_kv(self) -> bool:
+        """The paged KV layout arrives with port slice A6."""
+        return False
+
+    def init_paged_pool(self, n_pages: int, page: int):
+        raise NotImplementedError("paged KV arrives with port slice A6")
+
+    def paged_prefill(self, *args, **kwargs):
+        raise NotImplementedError("paged KV arrives with port slice A6")
+
+    def paged_decode(self, *args, **kwargs):
+        raise NotImplementedError("paged KV arrives with port slice A6")
+
+    @property
+    def supports_verify(self) -> bool:
+        """Speculative verify arrives with port slice A8."""
+        return False
+
+    def verify(self, *args, **kwargs):
+        raise NotImplementedError(
+            "speculative verify arrives with port slice A8")
+
+    # -- shapes ------------------------------------------------------------
+    def cache_capacity(self, seq_len: int) -> int:
+        w = self.cfg.sliding_window
+        return min(seq_len, w) if w else seq_len
+
+
+_REGISTRY = {}
+
+
+def register_family(name: str):
+    def deco(cls):
+        _REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def build_model(cfg: ArchConfig) -> BaseModel:
+    from . import dense  # noqa: F401  (registration)
+    if cfg.family in _LATER:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: it arrives with "
+            f"port slice {_LATER[cfg.family]}")
+    if cfg.family not in _REGISTRY:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return _REGISTRY[cfg.family](cfg)

@@ -1,0 +1,165 @@
+"""GQA attention: blockwise online-softmax (flash) for prefill, plain
+masked attention for short queries, sliding-window support, and the
+ring KV cache.
+
+Prefill attention is plain PyTorch ops, as it is plain array code in
+the reference; single-token decode goes through the hand-written
+``kernels.decode_attention`` kernel, whose plain version is
+``attention(chunk=0)`` on one query token.
+
+Masking is position-id based throughout: every key slot carries an
+absolute position (-1 = empty), which makes full caches and
+sliding-window ring caches look identical to the attention math.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+NEG_INF = -1e30
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: (B, Sq, H, dh), k: (B, Sk, KV, dh) -> (B, Sq, H, Sk) in f32."""
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, dh)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), k.float())
+    return s.reshape(B, Sq, H, Sk)
+
+
+def _gqa_av(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p: (B, Sq, H, Sk) f32, v: (B, Sk, KV, dh) -> (B, Sq, H, dh) f32."""
+    B, Sq, H, Sk = p.shape
+    KV, dh = v.shape[2], v.shape[3]
+    G = H // KV
+    pg = p.reshape(B, Sq, KV, G, Sk)
+    o = torch.einsum("bqkgs,bskd->bqkgd", pg, v.float())
+    return o.reshape(B, Sq, H, dh)
+
+
+def _edge_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int,
+               causal: bool = True) -> torch.Tensor:
+    """Allowed-edge mask. Shared positions — q_pos (Sq,), kv_pos (Sk,) —
+    give an (Sq, Sk) mask; per-row positions — q_pos (B, Sq), kv_pos
+    (B, Sk) — give (B, Sq, Sk). kv_pos == -1 marks an empty cache slot
+    (always masked)."""
+    qp = q_pos[..., :, None]
+    kp = kv_pos[..., None, :]
+    m = kp >= 0
+    if causal:
+        m = m & (kp <= qp)
+    if window:
+        m = m & (kp > qp - window)
+    return m
+
+
+def attention(q, k, v, *, q_pos, kv_pos, window: int = 0, chunk: int = 0,
+              causal: bool = True) -> torch.Tensor:
+    """Unified GQA attention.
+
+    q: (B, Sq, H, dh); k, v: (B, Sk, KV, dh); q_pos: (Sq,) absolute query
+    positions; kv_pos: (Sk,) absolute key positions (-1 empty). Per-row
+    positions — q_pos (B, Sq) / kv_pos (B, Sk) — are accepted on the plain
+    path only. Returns (B, Sq, H, dh) in q.dtype. ``chunk`` selects the
+    blockwise online-softmax path when it tiles Sk.
+    """
+    Sq, Sk = q.shape[1], k.shape[1]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))
+    if chunk and Sq > 1 and Sk > chunk and Sk % chunk == 0:
+        if q_pos.dim() != 1 or kv_pos.dim() != 1:
+            raise ValueError("flash path requires shared (1-D) positions")
+        return _flash(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window,
+                      chunk=chunk, scale=scale, causal=causal)
+    m = _edge_mask(q_pos, kv_pos, window, causal)  # (Sq, Sk) | (B, Sq, Sk)
+    m = m[None, :, None, :] if m.dim() == 2 else m[:, :, None, :]
+    s = _gqa_scores(q, k) * scale  # (B, Sq, H, Sk)
+    s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    # fully-masked rows (empty cache) give a uniform softmax, not NaN
+    p = torch.softmax(s, dim=-1)
+    o = _gqa_av(p, v)
+    return o.to(q.dtype)
+
+
+def _flash(q, k, v, *, q_pos, kv_pos, window, chunk, scale, causal=True):
+    """Online-softmax loop over KV chunks; never materializes (Sq, Sk)."""
+    B, Sq, H, dh = q.shape
+    Sk = k.shape[1]
+    m_run = torch.full((B, Sq, H), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros((B, Sq, H), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, H, dh), dtype=torch.float32, device=q.device)
+    for c0 in range(0, Sk, chunk):
+        kb, vb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        s = _gqa_scores(q, kb) * scale  # (B, Sq, H, chunk) f32
+        msk = _edge_mask(q_pos, kv_pos[c0:c0 + chunk], window, causal)
+        s = torch.where(msk[None, :, None, :], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        alpha = torch.exp(m_run - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_run = l_run * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + _gqa_av(p, vb)
+        m_run = m_new
+    out = acc / torch.clamp(l_run, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache: dict {k, v, pos, t}
+#   k, v: (B, C, KV, dh) where C = max_len (full) or window (ring)
+#   pos:  (C,) absolute position held in each slot, -1 if empty
+#   t:    () next absolute position to write
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(batch, capacity, n_kv, dh, dtype, device=None):
+    return {
+        "k": torch.zeros((batch, capacity, n_kv, dh), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, capacity, n_kv, dh), dtype=dtype,
+                         device=device),
+        "pos": torch.full((capacity,), -1, dtype=torch.int32, device=device),
+        "t": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def cache_prefill(cache, k, v):
+    """Write a full prefill of S tokens (positions 0..S-1) into the cache,
+    in place. k, v: (..., S, KV, dh) against cache buffers (..., C, KV,
+    dh) — one layer, or a leading layer axis for all layers at once. If
+    the cache is a ring (capacity < S), keep the last ``capacity`` tokens
+    at slot = absolute_pos % capacity."""
+    S = k.shape[-3]
+    C = cache["k"].shape[-3]
+    dev = cache["k"].device
+    if S <= C:
+        cache["k"][..., :S, :, :] = k.to(cache["k"].dtype)
+        cache["v"][..., :S, :, :] = v.to(cache["v"].dtype)
+        ar = torch.arange(C, dtype=torch.int32, device=dev)
+        pos = torch.where(ar < S, ar, torch.full_like(ar, -1))
+    else:
+        abs_pos = torch.arange(S - C, S, dtype=torch.int32, device=dev)
+        slots = (abs_pos % C).long()
+        cache["k"][..., slots, :, :] = k[..., S - C:, :, :].to(
+            cache["k"].dtype)
+        cache["v"][..., slots, :, :] = v[..., S - C:, :, :].to(
+            cache["v"].dtype)
+        pos = torch.zeros((C,), dtype=torch.int32, device=dev)
+        pos[slots] = abs_pos
+    cache["pos"] = pos
+    cache["t"] = torch.full((), S, dtype=torch.int32, device=dev)
+    return cache
+
+
+def cache_append(cache, k1, v1):
+    """Append one token (k1, v1: (B, 1, KV, dh)) in place; ring-wraps
+    automatically. ``t`` stays on the device (no host sync)."""
+    C = cache["k"].shape[1]
+    t = cache["t"]
+    slot = (t % C).reshape(1).long()
+    cache["k"].index_copy_(1, slot, k1.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v1.to(cache["v"].dtype))
+    cache["pos"] = cache["pos"].index_copy(0, slot, t.reshape(1))
+    cache["t"] = t + 1
+    return cache

@@ -1,0 +1,140 @@
+"""ExpertEngine: one expert model behind the router — the E=1 shim over
+the shared ``EngineCore``.
+
+What the engine guarantees (see ``EngineCore`` for mechanics):
+
+  * admissions snap to (batch, prompt-length) buckets, so the set of
+    shapes the engine ever runs is bounded by the bucket-ladder product;
+  * admitted groups stay resident (KV cache + last token) and advance one
+    token per ``tick`` — the scheduler interleaves ticks across engines;
+  * the decode step writes the KV cache in place;
+  * per-row results are emitted as soon as a row has its
+    ``max_new_tokens``, not when its whole group retires.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..core.registry import ExpertSpec
+from ..models.api import BaseModel
+from .core import EngineCore, EngineStats, bucket_for, make_buckets
+
+__all__ = ["ExpertEngine", "EngineStats", "bucket_for", "make_buckets"]
+
+
+class ExpertEngine:
+    """One expert model with bucketed shapes and resident groups. Runs on
+    ``cuda`` unless ``device="cpu"``; ``params`` must live there."""
+
+    def __init__(self, model: BaseModel, params, *, max_len: int = 256,
+                 min_len_bucket: int = 8,
+                 batch_buckets: Optional[Sequence[int]] = None,
+                 kv_layout: str = "ring", chunk_len: Optional[int] = None,
+                 speculate_k: int = 0, device=None):
+        self.core = EngineCore(model, [params], max_len=max_len,
+                               min_len_bucket=min_len_bucket,
+                               batch_buckets=batch_buckets,
+                               kv_layout=kv_layout, chunk_len=chunk_len,
+                               speculate_k=speculate_k, device=device)
+        self.model = model
+        self.params = params
+        self.device = self.core.device
+        self.max_len = self.core.max_len
+        self.len_buckets = self.core.len_buckets
+        self.batch_buckets = self.core.batch_buckets
+        self.kv_layout = self.core.kv_layout
+        self._gen_serial = 0           # private generate() uid namespace
+
+    @property
+    def stats(self) -> EngineStats:
+        return self.core.stats
+
+    def bind_tracer(self, tracer) -> None:
+        """Install a lifecycle tracer on the core (None disables)."""
+        self.core.bind_tracer(tracer)
+
+    @property
+    def spec(self) -> ExpertSpec:
+        """The catalog entry type describing this engine."""
+        return ExpertSpec.of_engine(self)
+
+    # -- admission -------------------------------------------------------
+    def pad_shape(self, n_rows: int, prompt_len: int) -> Tuple[int, int]:
+        """(batch bucket, length bucket) this admission would snap to."""
+        return self.core.pad_shape(n_rows, prompt_len)
+
+    def admit(self, uids: Sequence[int], prompts: Sequence[np.ndarray],
+              max_new: Sequence[int], *, defer: bool = False) -> None:
+        """Prefill a micro-batch and keep it resident for ticking.
+        ``defer=True`` enqueues only — see ``EngineCore.admit_wave``."""
+        if not (len(uids) == len(prompts) == len(max_new)):
+            raise ValueError("uids/prompts/max_new length mismatch")
+        if not len(uids):
+            raise ValueError(
+                "ExpertEngine.admit: empty micro-batch (0 rows); admit "
+                "at least one row or skip the call")
+        self.core.admit_wave(
+            {0: (list(uids), list(prompts), list(max_new))}, defer=defer)
+
+    # -- decoding --------------------------------------------------------
+    def tick(self, *, defer: bool = False) -> int:
+        """Advance every active group one decode step. Returns the number
+        of groups advanced (0 == engine idle)."""
+        return self.core.tick(defer=defer)
+
+    def harvest(self) -> None:
+        """Materialise (one batched copy per wave) and emit every row
+        whose tokens are all available; retire finished groups."""
+        self.core.harvest()
+
+    def poll(self) -> List[Tuple[int, np.ndarray]]:
+        """Drain finished (uid, tokens) pairs."""
+        return [(uid, seq) for _local, uid, seq in self.core.poll()]
+
+    @property
+    def n_active(self) -> int:
+        return self.core.n_active
+
+    @property
+    def has_pending(self) -> bool:
+        """Still decoding, or holding finished rows not yet polled."""
+        return self.core.has_pending
+
+    # -- blocking convenience --------------------------------------------
+    def generate(self, tokens, max_new: int) -> np.ndarray:
+        """Greedy generation. tokens: (B, S) int32 -> (B, max_new).
+
+        Safe to interleave with scheduler-owned admit/tick/poll traffic:
+        rows are admitted under a private uid namespace (tuples never
+        collide with caller-issued int uids), and any other owner's
+        finished rows drained along the way are put back.
+        """
+        toks = np.asarray(tokens)
+        if len(toks) == 0:
+            return np.zeros((0, max(1, int(max_new))), np.int32)
+        self._gen_serial += 1
+        uids = [("__generate__", self._gen_serial, i)
+                for i in range(len(toks))]
+        self.admit(uids, list(toks), [max_new] * len(toks))
+        want = set(uids)
+        rows: Dict[Any, np.ndarray] = {}
+        stash: List[Tuple[Any, np.ndarray]] = []
+
+        def drain():
+            for uid, seq in self.poll():
+                if uid in want:
+                    rows[uid] = seq
+                else:
+                    stash.append((uid, seq))
+
+        try:
+            drain()
+            while len(rows) < len(uids):
+                self.tick()
+                drain()
+        finally:
+            self.core._finished.extend(
+                (0, uid, seq) for uid, seq in stash)
+        return np.stack([rows[u] for u in uids])

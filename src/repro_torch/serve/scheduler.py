@@ -1,0 +1,512 @@
+"""Admission queue + continuous micro-batching scheduler (Fig. 2 of the
+paper as a serving system).
+
+Life of a request:
+
+  submit() -> Router.route (fingerprint LRU + the routing kernels)
+           -> per-expert FIFO queue, sub-bucketed by prompt-length bucket
+  step()   -> the dispatch executor runs one round over all shards:
+              admission (per shard, pick one length bucket — fullest
+              wins, with age-based promotion so sparse buckets can't
+              starve — and admit one micro-batch), then decode (every
+              shard with resident waves advances one token), then engine
+              harvest. With the default ``overlapped`` executor every
+              prefill and decode tick is *enqueued* before anything
+              blocks; ``executor="serial"`` keeps the blocking per-tick
+              reference behaviour.
+           -> harvest: finished rows become Responses immediately
+  drain()  -> step() until all queues and engines are empty
+
+Queues persist across calls, so requests submitted in *different*
+``submit`` calls coalesce into the same micro-batch. This module holds
+the one-engine-per-expert path; banked placement and the expert hub
+arrive with port slice A9.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..core.matcher import ExpertMatcher
+from ..core.registry import ExpertRegistry
+from ..device import resolve_device
+from ..obs.metrics import Counter, Histogram, MetricsRegistry
+from ..obs.trace import NULL_TRACER
+from .core import DispatchExecutor, get_executor
+from .engine import ExpertEngine
+from .router import PrefixLRU, Router
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    features: np.ndarray            # (784,) matcher fingerprint
+    prompt: np.ndarray              # (S,) int32 tokens
+    max_new_tokens: int = 8
+    expert: Optional[int] = None    # pre-routed: skip the matcher
+
+
+@dataclasses.dataclass
+class Response:
+    uid: int
+    expert: str
+    fine_class: int
+    tokens: np.ndarray
+    coarse_scores: Optional[np.ndarray] = None
+    shard: int = -1                 # shard that served the row
+
+
+@dataclasses.dataclass
+class SchedulerConfig:
+    max_batch: int = 16             # micro-batch row cap (per expert)
+    max_queue: int = 4096           # admission queue cap (backpressure)
+    promote_after: int = 4          # rounds a waiting bucket may be
+    #                                 skipped before it wins admission
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerStats:
+    """Immutable snapshot of the scheduler's counters; ``as_dict()`` is
+    the shape the metrics registry snapshots."""
+    submitted: int = 0
+    rejected: int = 0
+    batches: int = 0
+    ticks: int = 0
+    responses: int = 0
+    promotions: int = 0
+    orphaned: int = 0
+
+    def as_dict(self) -> Dict[str, int]:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """One dispatch group: here always a single expert's engine."""
+    sid: int
+    experts: Tuple[int, ...]
+
+
+@dataclasses.dataclass
+class _Pending:
+    req: Request
+    fine: int
+    scores: np.ndarray
+    shard: int = -1
+    seq: int = 0                    # submit order, for age promotion
+    expert: int = -1                # routed expert
+    trace: int = 0                  # trace id (0 when tracing is off)
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+
+
+class Scheduler:
+    """Routes, queues, batches and ticks one engine per expert."""
+
+    def __init__(self, router: Optional[Router],
+                 registry: ExpertRegistry,
+                 config: Optional[SchedulerConfig] = None,
+                 placement=None,
+                 executor: "str | DispatchExecutor" = "overlapped",
+                 hub=None, tracer=None):
+        if placement is not None:
+            raise NotImplementedError(
+                "banked placement arrives with port slice A9")
+        if hub is not None:
+            raise NotImplementedError(
+                "the expert hub arrives with port slice A9")
+        self.router = router
+        self.registry = registry
+        self.config = config or SchedulerConfig()
+        self.executor = get_executor(executor)
+        self.shards = [Shard(sid=e, experts=(e,))
+                       for e in range(len(registry))]
+        self._shard_of = {e: s.sid for s in self.shards for e in s.experts}
+        # queues[expert][len_bucket] -> FIFO of _Pending
+        self.queues: Dict[int, Dict[int, collections.deque]] = \
+            collections.defaultdict(lambda: collections.defaultdict(
+                collections.deque))
+        self.n_queued = 0
+        self._seq = 0
+        self._skips: Dict[Tuple[int, int], int] = \
+            collections.defaultdict(int)   # (shard, bucket) skip rounds
+        self._counters: Dict[str, Counter] = {
+            f.name: Counter() for f in dataclasses.fields(SchedulerStats)}
+        self._done: List[Response] = []
+        self._meta: Dict[int, _Pending] = {}   # uid -> routing info
+        self.prefix_lru = PrefixLRU()
+        self._h_queue = Histogram()
+        self.tracer = NULL_TRACER
+        self.bind_tracer(tracer)
+        self.obs = self._build_metrics()
+
+    @property
+    def stats(self) -> SchedulerStats:
+        """Frozen point-in-time snapshot of the scheduler counters."""
+        return SchedulerStats(**{k: c.value
+                                 for k, c in self._counters.items()})
+
+    def bind_tracer(self, tracer) -> None:
+        """Install a lifecycle tracer here and on every engine core (None
+        restores the disabled NULL_TRACER)."""
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        for shard in self.shards:
+            eng = self._shard_engine(shard)
+            if eng is not None:
+                eng.core.bind_tracer(self.tracer)
+
+    def _build_metrics(self) -> MetricsRegistry:
+        """The snapshot tree: scheduler counters + queue latency, every
+        engine's ``EngineStats`` and the router."""
+        obs = MetricsRegistry()
+        obs.register("scheduler", lambda: self.stats.as_dict())
+        obs.register("scheduler/latency/queue_ms", self._h_queue)
+        obs.register("executor", lambda: {"name": self.executor.name})
+        for shard in self.shards:
+            eng = self._shard_engine(shard)
+            if eng is not None:
+                obs.register(f"engines/shard{shard.sid}",
+                             (lambda e=eng: e.stats.as_dict()))
+        if self.router is not None:
+            obs.register("router", self._router_metrics)
+        return obs
+
+    def _router_metrics(self) -> Dict[str, Any]:
+        r = self.router
+        return {**r.stats, "expert_hits": dict(r.expert_hits),
+                "prefix_lru": dict(self.prefix_lru.stats)}
+
+    # -- admission -------------------------------------------------------
+    def submit(self, requests: Sequence[Request]) -> int:
+        """Route and enqueue; returns how many were admitted — always a
+        prefix of ``requests``, so callers can resubmit the tail later.
+        uids must be unique among in-flight requests."""
+        if not requests:
+            return 0
+        batch_seen = set()
+        for r in requests:
+            if r.uid in self._meta or r.uid in batch_seen:
+                raise ValueError(f"duplicate in-flight uid {r.uid}")
+            batch_seen.add(r.uid)
+        room = max(self.config.max_queue - self.n_queued, 0)
+        self._counters["rejected"].inc(
+            len(requests) - min(len(requests), room))
+        requests = requests[:room]
+        if not requests:
+            return 0
+        miss = [i for i, r in enumerate(requests) if r.expert is None]
+        if miss and self.router is None:
+            raise ValueError(
+                "scheduler has no router: every request must be "
+                "pre-routed (Request.expert set)")
+        routed = None
+        if miss:
+            with self.tracer.span("route", rows=len(miss),
+                                  uids=[requests[i].uid for i in miss]):
+                routed = self.router.route(np.stack(
+                    [requests[i].features for i in miss]))
+        routed_at = {i: j for j, i in enumerate(miss)}
+        top_k = routed.coarse.shape[1] if routed is not None else 1
+        admitted = 0
+        for i, r in enumerate(requests):
+            if r.expert is not None:
+                e, fine = int(r.expert), 0
+                if not 0 <= e < len(self.registry):
+                    raise ValueError(f"pre-routed expert {e} out of "
+                                     f"range [0, {len(self.registry)})")
+                scores = np.zeros(top_k, np.float32)
+                if self.router is not None:
+                    self.router.expert_hits[e] += 1
+            else:
+                j = routed_at[i]
+                e = int(routed.coarse[j, 0])
+                fine = int(routed.fine[j])
+                scores = routed.coarse_score[j]
+            sid = self._shard_of.get(e, -1)
+            engine = self.registry[e].backend
+            sb = (engine.pad_shape(1, len(r.prompt))[1]
+                  if hasattr(engine, "pad_shape") else len(r.prompt))
+            self._seq += 1
+            self.prefix_lru.observe(r.prompt)
+            p = _Pending(r, fine, scores, shard=sid, seq=self._seq,
+                         expert=e, t_submit=self.tracer.now())
+            if self.tracer.enabled:
+                p.trace = self.tracer.next_id()
+                self.tracer.bind_uid(r.uid, p.trace)
+                self.tracer.event("request.submit", uid=r.uid,
+                                  trace=p.trace, expert=e, shard=sid,
+                                  prompt_len=len(r.prompt),
+                                  max_new=int(r.max_new_tokens))
+            self.queues[e][sb].append(p)
+            self._meta[r.uid] = p
+            self.n_queued += 1
+            admitted += 1
+        self._counters["submitted"].inc(admitted)
+        return admitted
+
+    # -- one scheduling round -------------------------------------------
+    def step(self) -> List[Response]:
+        self.executor.run_step(self)
+        self._harvest()
+        out, self._done = self._done, []
+        self._counters["responses"].inc(len(out))
+        return out
+
+    def drain(self) -> List[Response]:
+        out: List[Response] = []
+        while self.has_work:
+            out.extend(self.step())
+        return out
+
+    @property
+    def has_work(self) -> bool:
+        if self.n_queued:
+            return True
+        # has_pending, not n_active: finished-but-unpolled rows count
+        return any(eng is not None and eng.has_pending
+                   for eng in map(self._shard_engine, self.shards))
+
+    # -- internals -------------------------------------------------------
+    def _shard_engine(self, shard: Shard) -> Optional[ExpertEngine]:
+        """The tickable engine behind a shard; None for stub/legacy
+        backends that complete at admission."""
+        engine = self.registry[shard.experts[0]].backend
+        return engine if isinstance(engine, ExpertEngine) else None
+
+    def _pick_bucket(self, shard: Shard) -> Optional[int]:
+        """Length bucket this shard admits this round: the fullest bucket
+        wins unless a non-empty bucket has been skipped ``promote_after``
+        rounds in a row — then the starving bucket with the oldest head
+        wins."""
+        counts: Dict[int, int] = collections.defaultdict(int)
+        oldest: Dict[int, int] = {}
+        for e in shard.experts:
+            for sb, q in self.queues[e].items():
+                if q:
+                    counts[sb] += len(q)
+                    oldest[sb] = min(oldest.get(sb, q[0].seq), q[0].seq)
+        # prune drained buckets' counters (legacy backends key queues by
+        # raw prompt length, which would grow _skips without bound)
+        for key in [k for k in self._skips if k[0] == shard.sid
+                    and k[1] not in counts]:
+            del self._skips[key]
+        if not counts:
+            return None
+        starving = [sb for sb in counts
+                    if self._skips[(shard.sid, sb)]
+                    >= self.config.promote_after]
+        if starving:
+            sb = min(starving, key=lambda b: oldest[b])
+            self._counters["promotions"].inc()
+        else:
+            sb = max(counts, key=lambda b: (counts[b], -oldest[b]))
+        for other in counts:
+            if other != sb:
+                self._skips[(shard.sid, other)] += 1
+        self._skips.pop((shard.sid, sb), None)
+        return sb
+
+    def _pop(self, e: int, sb: int, cap: int) -> List[_Pending]:
+        """Take up to ``cap`` rows, FIFO, from one bucket queue."""
+        q = self.queues[e][sb]
+        take = [q.popleft() for _ in range(min(len(q), cap))]
+        self.n_queued -= len(take)
+        if not q:
+            del self.queues[e][sb]
+        return take
+
+    def _mark_admitted(self, take: List[_Pending], sid: int, sb: int
+                       ) -> None:
+        t = self.tracer.now()
+        for p in take:
+            p.t_admit = t
+        if take and self.tracer.enabled:
+            self.tracer.event("request.admit", shard=sid, bucket=sb,
+                              uids=[p.req.uid for p in take],
+                              traces=[p.trace for p in take])
+
+    def _finish_row(self, p: _Pending) -> None:
+        """Close the row's lifecycle accounting at response emission."""
+        t = self.tracer.now()
+        admit = p.t_admit if p.t_admit else t
+        queue_s = max(admit - p.t_submit, 0.0)
+        self._h_queue.observe(queue_s * 1e3)
+        if self.tracer.enabled:
+            self.tracer.event(
+                "request.finish", uid=p.req.uid, trace=p.trace,
+                expert=p.expert, queue_ms=queue_s * 1e3,
+                total_ms=(t - p.t_submit) * 1e3)
+            self.tracer.release_uid(p.req.uid)
+
+    def _admit_batches(self, *, defer: bool = False) -> None:
+        """Issue one micro-batch per shard. With ``defer`` the prefills
+        are only enqueued."""
+        for shard in self.shards:
+            sb = self._pick_bucket(shard)
+            if sb is not None:
+                self._admit_single(shard.experts[0], sb, defer=defer)
+
+    def _admit_single(self, e: int, sb: int, *,
+                      defer: bool = False) -> None:
+        engine = self.registry[e].backend
+        name = self.registry[e].name
+        cap = self.config.max_batch
+        if isinstance(engine, ExpertEngine):
+            cap = min(cap, engine.batch_buckets[-1])
+        take = self._pop(e, sb, cap)
+        if not take:
+            return
+        self._counters["batches"].inc()
+        if isinstance(engine, ExpertEngine):
+            engine.admit([p.req.uid for p in take],
+                         [p.req.prompt for p in take],
+                         [p.req.max_new_tokens for p in take],
+                         defer=defer)
+            self._mark_admitted(take, self._shard_of.get(e, -1), sb)
+        elif engine is None:
+            for p in take:
+                self._meta.pop(p.req.uid, None)
+                self._done.append(self._response(
+                    p, name, np.zeros(p.req.max_new_tokens, np.int32)))
+                self._finish_row(p)
+        else:
+            # legacy blocking engines: one padded batch call
+            m = max(len(p.req.prompt) for p in take)
+            toks = np.zeros((len(take), m), np.int32)
+            for i, p in enumerate(take):
+                toks[i, :len(p.req.prompt)] = p.req.prompt
+            gen = np.asarray(engine.generate(
+                toks, max(p.req.max_new_tokens for p in take)))
+            for i, p in enumerate(take):
+                self._meta.pop(p.req.uid, None)
+                self._done.append(self._response(
+                    p, name, gen[i, :p.req.max_new_tokens]))
+                self._finish_row(p)
+
+    def _tick_engines(self, *, defer: bool = False) -> None:
+        """Advance every shard's resident waves one token."""
+        for shard in self.shards:
+            eng = self._shard_engine(shard)
+            if eng is not None and eng.n_active:
+                eng.tick(defer=defer)
+                self._counters["ticks"].inc()
+
+    def _harvest_engines(self) -> None:
+        """One batched device-to-host copy per wave (at most): emit
+        finished rows into each engine's poll buffer."""
+        for shard in self.shards:
+            eng = self._shard_engine(shard)
+            if eng is not None:
+                eng.harvest()
+
+    def _harvest(self) -> None:
+        for shard in self.shards:
+            eng = self._shard_engine(shard)
+            if eng is None:
+                continue
+            for uid, toks in eng.poll():
+                if uid not in self._meta and isinstance(uid, tuple):
+                    # generate()'s private uid namespace: rows of a call
+                    # that raised mid-flight surface here with no owner
+                    self._counters["orphaned"].inc()
+                    continue
+                p = self._meta.pop(uid)
+                name = self.registry[shard.experts[0]].name
+                self._done.append(self._response(
+                    p, name, toks[:p.req.max_new_tokens]))
+                self._finish_row(p)
+
+    def _response(self, p: _Pending, name: str,
+                  tokens: np.ndarray) -> Response:
+        return Response(uid=p.req.uid, expert=name, fine_class=p.fine,
+                        tokens=tokens, coarse_scores=p.scores,
+                        shard=p.shard)
+
+
+class RoutedServer:
+    """ExpertMatcher in front of one engine per expert.
+
+    ``serve`` is submit-then-drain, returning responses in request order;
+    incremental users call ``submit``/``step`` directly. ``executor``
+    (``"overlapped"`` — the default — or ``"serial"``, the blocking
+    reference) picks how each step drives its shards; both give identical
+    tokens. Runs on ``cuda`` unless ``device="cpu"``; the matcher and the
+    engines must live there. ``placement`` and ``hub`` arrive with port
+    slice A9.
+    """
+
+    def __init__(self, matcher: Optional[ExpertMatcher],
+                 registry: ExpertRegistry,
+                 *, max_batch: int = 16, route_cache_size: int = 4096,
+                 use_fine_kernel: bool = True, placement=None,
+                 executor: "str | DispatchExecutor" = "overlapped",
+                 hub=None, tracer=None, device=None):
+        if placement is not None:
+            raise NotImplementedError(
+                "banked placement arrives with port slice A9")
+        if hub is not None:
+            raise NotImplementedError(
+                "the expert hub arrives with port slice A9")
+        self.device = resolve_device(device)
+        if matcher is None:
+            raise ValueError("matcher=None requires a hub serving "
+                             "pre-routed requests (port slice A9)")
+        if len(registry) != matcher.n_experts:
+            raise ValueError(f"registry holds {len(registry)} experts, the "
+                             f"matcher's bank {matcher.n_experts}")
+        if matcher.device.type != self.device.type:
+            raise ValueError(f"matcher lives on {matcher.device}, the "
+                             f"server runs on {self.device}")
+        for e in range(len(registry)):
+            be = registry[e].backend
+            if isinstance(be, ExpertEngine) and \
+                    be.device.type != self.device.type:
+                raise ValueError(f"expert {registry[e].name!r} runs on "
+                                 f"{be.device}, the server on {self.device}")
+        self.matcher = matcher
+        self.registry = registry
+        self.router = Router(matcher, cache_size=route_cache_size,
+                             use_fine_kernel=use_fine_kernel)
+        self.scheduler = Scheduler(
+            self.router, registry, SchedulerConfig(max_batch=max_batch),
+            executor=executor, tracer=tracer)
+        #: the unified metrics registry — ``obs.snapshot()`` is the whole
+        #: server's state as one nested dict
+        self.obs = self.scheduler.obs
+
+    def bind_tracer(self, tracer) -> None:
+        self.scheduler.bind_tracer(tracer)
+
+    def snapshot(self) -> Dict[str, Any]:
+        return self.obs.snapshot()
+
+    def submit(self, requests: Sequence[Request]) -> int:
+        return self.scheduler.submit(requests)
+
+    def step(self) -> List[Response]:
+        return self.scheduler.step()
+
+    def serve(self, requests: Sequence[Request]) -> List[Response]:
+        if not requests:
+            return []
+        got: Dict[int, Response] = {}
+        todo = list(requests)
+        while todo or self.scheduler.has_work:
+            if todo:
+                todo = todo[self.scheduler.submit(todo):]
+            for r in self.scheduler.step():
+                got[r.uid] = r
+        return [got[r.uid] for r in requests]
+
+    @property
+    def stats(self) -> Dict:
+        engines = {self.registry[e].name: self.registry[e].backend.stats
+                   for e in range(len(self.registry))
+                   if isinstance(self.registry[e].backend, ExpertEngine)}
+        return {"scheduler": self.scheduler.stats,
+                "router": self.router.stats,
+                "engines": engines,
+                "executor": self.scheduler.executor.name}

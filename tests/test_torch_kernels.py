@@ -1,0 +1,309 @@
+"""The port's kernels against the reference kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; those are held
+to the reference's Pallas kernels (interpret mode, exactly as
+tests/test_kernels.py runs them) on the same numpy inputs, at the
+tolerances of tests/test_kernels.py: rtol 2e-5 for f32, 2e-2 for bf16.
+The ``cuda`` cases hold each hand-written CUDA kernel to its plain
+version on the card (bf16 decode at 4e-3, about 8x the largest error
+measured on an H100) and skip elsewhere.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops as tops
+
+
+@pytest.fixture(scope="module")
+def jref():
+    """The reference kernels (JAX), imported only by the tests that
+    compare against them."""
+    import jax.numpy as jnp
+    from repro.kernels import ops, ref
+    return jnp, ops, ref
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _bank(K, D, H, seed=0):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    params = {
+        "w_enc": (rng.standard_normal((K, D, H)) * 0.03).astype(f),
+        "b_enc": (rng.standard_normal((K, H)) * 0.01).astype(f),
+        "bn_scale": (1.0 + rng.standard_normal((K, H)) * 0.1).astype(f),
+        "bn_bias": (rng.standard_normal((K, H)) * 0.05).astype(f),
+        "w_dec": (rng.standard_normal((K, H, D)) * 0.03).astype(f),
+        "b_dec": (rng.standard_normal((K, D)) * 0.01).astype(f),
+    }
+    states = {"mean": (rng.standard_normal((K, H)) * 0.1).astype(f),
+              "var": (1.0 + rng.uniform(size=(K, H))).astype(f),
+              "count": np.ones((K,), f)}
+    return params, states
+
+
+def _t(tree, device="cpu"):
+    return {k: torch.from_numpy(v).to(device) for k, v in tree.items()}
+
+
+EXPERT_GRID = [(32, 784, 128, 6), (128, 512, 64, 10), (16, 100, 32, 3),
+               (256, 100, 32, 3)]
+
+
+@pytest.mark.parametrize("B,D,H,K", EXPERT_GRID)
+def test_expert_score_matches_reference(jref, B, D, H, K):
+    jnp, ops, _ = jref
+    params, states = _bank(K, D, H, seed=B + K)
+    x = np.random.default_rng(B).uniform(size=(B, D)).astype(np.float32)
+    want = np.asarray(ops.expert_score(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x),
+        {k: jnp.asarray(v) for k, v in states.items()}))
+    got = tops.expert_score(_t(params), torch.from_numpy(x), _t(states))
+    assert got.shape == (B, K)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=1e-6)
+
+
+def test_fold_bank_matches_reference_without_lane_padding(jref):
+    """The port folds eval BN exactly as the reference does, but keeps
+    D = 784 (the reference's 784 -> 896 pad is a TPU lane artifact)."""
+    jnp, ops, _ = jref
+    params, states = _bank(5, 784, 128, seed=3)
+    want = ops.fold_bank({k: jnp.asarray(v) for k, v in params.items()},
+                         {k: jnp.asarray(v) for k, v in states.items()})
+    got = tops.fold_bank(_t(params), _t(states))
+    D = 784
+    np.testing.assert_allclose(got["w1"].numpy(),
+                               np.asarray(want["w1"])[:, :D], rtol=2e-5,
+                               atol=1e-7)
+    np.testing.assert_allclose(got["b1"].numpy(), np.asarray(want["b1"]),
+                               rtol=2e-5, atol=1e-7)
+    np.testing.assert_array_equal(got["w2"].numpy(),
+                                  np.asarray(want["w2"])[:, :, :D])
+    np.testing.assert_array_equal(got["b2"].numpy(),
+                                  np.asarray(want["b2"])[:, :D])
+    assert not np.asarray(want["w1"])[:, D:].any()   # the pad is zeros
+
+
+def test_expert_score_identity_bn_default():
+    """bank_states=None means identity BN statistics, as in the
+    reference's convenience entry."""
+    params, _ = _bank(3, 100, 32, seed=1)
+    x = torch.rand(8, 100, generator=torch.Generator().manual_seed(0))
+    ident = {"mean": torch.zeros(3, 32), "var": torch.ones(3, 32)}
+    torch.testing.assert_close(tops.expert_score(_t(params), x),
+                               tops.expert_score(_t(params), x, ident),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,M,h", [(32, 10, 128), (64, 3, 64), (16, 17, 32)])
+def test_cosine_scores_matches_reference_kernel(jref, B, M, h):
+    """Held to the kernel's rsqrt(sum + eps) form, zero padding rows
+    included; masked classes exactly -inf."""
+    jnp, ops, _ = jref
+    rng = np.random.default_rng(B + M)
+    z = rng.standard_normal((B, h)).astype(np.float32)
+    z[-1] = 0.0                         # a router zero-padding row
+    c = rng.standard_normal((M, h)).astype(np.float32)
+    mask = (np.arange(M) < max(M - 2, 1)).astype(np.float32)
+    want = np.asarray(ops.cosine_scores(jnp.asarray(z), jnp.asarray(c),
+                                        jnp.asarray(mask)))
+    got = tops.cosine_scores(torch.from_numpy(z), torch.from_numpy(c),
+                             torch.from_numpy(mask)).numpy()
+    assert (np.isneginf(got) == (mask[None, :] == 0)).all()
+    assert (np.isinf(got) == np.isinf(want)).all()
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=2e-5, atol=1e-6)
+
+
+DECODE_GRID = [
+    (4, 8, 2, 64, 512, 0, "float32"),
+    (2, 4, 4, 64, 256, 0, "float32"),
+    (4, 8, 2, 64, 512, 128, "float32"),
+    (1, 16, 2, 128, 512, 0, "float32"),
+    (2, 8, 2, 64, 512, 0, "bfloat16"),
+]
+
+
+def _decode_inputs(B, H, KV, dh, S, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, dh)).astype(np.float32)
+    t = S - S // 3
+    kv_pos = np.where(np.arange(S) <= t, np.arange(S), -1).astype(np.int32)
+    return q, k, v, np.int32(t), kv_pos
+
+
+@pytest.mark.parametrize("B,H,KV,dh,S,win,dtype", DECODE_GRID)
+def test_decode_attention_matches_reference_kernel(jref, B, H, KV, dh, S,
+                                                   win, dtype):
+    jnp, ops, _ = jref
+    q, k, v, t, kv_pos = _decode_inputs(B, H, KV, dh, S, seed=S + H)
+    jd = getattr(jnp, dtype)
+    want = np.asarray(ops.decode_attention(
+        jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd),
+        jnp.asarray(t), jnp.asarray(kv_pos), window=win, block_s=256),
+        np.float32)
+    td = getattr(torch, dtype)
+    got = tops.decode_attention(
+        torch.from_numpy(q).to(td), torch.from_numpy(k).to(td),
+        torch.from_numpy(v).to(td), torch.tensor(t),
+        torch.from_numpy(kv_pos), window=win)
+    assert got.dtype == td and got.shape == (B, H, dh)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                               atol=tol)
+
+
+def test_decode_attention_ring_scramble_invariance(jref):
+    """Scrambled (ring) slot order must not change the result; and the
+    windowed ring agrees with the reference kernel."""
+    jnp, ops, _ = jref
+    B, H, KV, dh, S = 2, 4, 2, 32, 256
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((B, H, dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, dh)).astype(np.float32)
+    kv_pos = (np.arange(S) + 300 - S + 1).astype(np.int32)
+    perm = rng.permutation(S)
+    t = torch.tensor(300, dtype=torch.int32)
+    got1 = tops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), t,
+                                 torch.from_numpy(kv_pos), window=128)
+    got2 = tops.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(np.ascontiguousarray(k[:, perm])),
+        torch.from_numpy(np.ascontiguousarray(v[:, perm])), t,
+        torch.from_numpy(kv_pos[perm]), window=128)
+    torch.testing.assert_close(got1, got2, rtol=1e-5, atol=1e-6)
+    want = np.asarray(ops.decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(300, jnp.int32), jnp.asarray(kv_pos), window=128,
+        block_s=64))
+    np.testing.assert_allclose(got1.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_cpu_calls_take_the_plain_path_and_count_nothing():
+    """Launch counters move only where a CUDA kernel launches."""
+    tops.reset_launches()
+    params, states = _bank(2, 64, 16)
+    tops.expert_score(_t(params), torch.rand(4, 64), _t(states))
+    tops.cosine_scores(torch.rand(4, 16), torch.rand(3, 16), torch.ones(3))
+    q, k, v, t, kv_pos = _decode_inputs(1, 4, 2, 32, 16, seed=0)
+    tops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), torch.tensor(t),
+                          torch.from_numpy(kv_pos))
+    assert tops.launches() == {"expert_score": 0, "cosine_scores": 0,
+                               "decode_attention": 0}
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on a CUDA card raises
+    instead of silently taking a path."""
+    q = torch.zeros(1, 4, 32, device="meta")
+    k = torch.zeros(1, 8, 2, 32, device="meta")
+    pos = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tops.decode_attention(q, k, k, pos[0], pos)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tops.cosine_scores(q[0], q[0], pos[:4].float())
+
+
+# -- on the card: each CUDA kernel against its plain version --------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,H,K", EXPERT_GRID)
+def test_cuda_expert_score_kernel(cuda, B, D, H, K):
+    params, states = _bank(K, D, H, seed=B + K)
+    folded = tops.fold_bank(_t(params, cuda), _t(states, cuda))
+    x = torch.rand(B, D, device=cuda)
+    n0 = tops.expert_score_folded.launches
+    got = tops.expert_score_folded(folded, x)
+    assert tops.expert_score_folded.launches == n0 + 1
+    want = tops.expert_score_plain(folded, x)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M,h", [(32, 10, 128), (64, 3, 64), (16, 17, 32),
+                                   (5, 10, 128)])
+def test_cuda_cosine_scores_kernel(cuda, B, M, h):
+    z = torch.randn(B, h, device=cuda)
+    z[-1] = 0.0
+    c = torch.randn(M, h, device=cuda)
+    mask = (torch.arange(M, device=cuda) < max(M - 2, 1)).float()
+    got = tops.cosine_scores(z, c, mask)
+    want = tops.cosine_scores_plain(z, c, mask)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,dh,S,win,dtype", DECODE_GRID + [
+    (16, 32, 8, 64, 256, 0, "bfloat16"),     # llama3_2_1b decode
+    (3, 8, 8, 32, 100, 24, "float32"),       # ragged S, G = 1, window
+])
+def test_cuda_decode_attention_kernel(cuda, B, H, KV, dh, S, win, dtype):
+    q, k, v, t, kv_pos = _decode_inputs(B, H, KV, dh, S, seed=S + H)
+    td = getattr(torch, dtype)
+    args = (torch.from_numpy(q).to(cuda, td), torch.from_numpy(k).to(cuda, td),
+            torch.from_numpy(v).to(cuda, td),
+            torch.tensor(t, device=cuda), torch.from_numpy(kv_pos).to(cuda))
+    got = tops.decode_attention(*args, window=win)
+    want = tops.decode_attention_plain(*args, window=win)
+    tol = 4e-3 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", ["first", "last", "one", "middle"])
+def test_cuda_decode_attention_skips_dead_tiles_exactly(cuda, live):
+    """The kernel skips 32-slot tiles with no live slot; that must give
+    what the plain version gives over the whole ring, wherever the live
+    slots sit (at the front as after a prefill, behind dead tiles, a
+    single slot, or between dead tiles)."""
+    B, H, KV, dh, S = 3, 8, 2, 64, 200
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(B, H, dh, device=cuda, generator=g)
+    k = torch.randn(B, S, KV, dh, device=cuda, generator=g)
+    v = torch.randn(B, S, KV, dh, device=cuda, generator=g)
+    t = torch.tensor(500, dtype=torch.int32, device=cuda)
+    pos = torch.full((S,), -1, dtype=torch.int32, device=cuda)
+    span = {"first": (0, 40), "last": (170, 200), "one": (101, 102),
+            "middle": (64, 130)}[live]
+    pos[span[0]:span[1]] = torch.arange(*span, dtype=torch.int32,
+                                        device=cuda)
+    if span[1] - span[0] > 1:
+        pos[span[0]] = 600          # a slot ahead of q_pos is masked too
+    torch.testing.assert_close(
+        tops.decode_attention(q, k, v, t, pos),
+        tops.decode_attention_plain(q, k, v, t, pos), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_empty_and_scrambled_ring(cuda):
+    """An all-empty cache averages V like the plain softmax, and slot
+    order does not matter on the card either."""
+    B, H, KV, dh, S = 2, 4, 2, 32, 96
+    q = torch.randn(B, H, dh, device=cuda)
+    k = torch.randn(B, S, KV, dh, device=cuda)
+    v = torch.randn(B, S, KV, dh, device=cuda)
+    t = torch.tensor(150, dtype=torch.int32, device=cuda)
+    empty = torch.full((S,), -1, dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(
+        tops.decode_attention(q, k, v, t, empty),
+        tops.decode_attention_plain(q, k, v, t, empty), rtol=2e-5, atol=2e-5)
+    kv_pos = (torch.arange(S, device=cuda) + 150 - S + 1).to(torch.int32)
+    perm = torch.randperm(S, device=cuda)
+    a = tops.decode_attention(q, k, v, t, kv_pos, window=64)
+    b = tops.decode_attention(q, k[:, perm].contiguous(),
+                              v[:, perm].contiguous(), t, kv_pos[perm],
+                              window=64)
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
