@@ -13,23 +13,36 @@ Phases, each printing one JSON line:
 2. reference — a reduced float32 ``llama3_2_1b`` expert generates on the
    card (through the kernels) and on the CPU (through their plain
    versions) from the same weights: greedy tokens must be equal and
-   logits must agree.
-3. serve — the main path: an AE-bank matcher (K = 6, 784 -> 128, coarse
-   scoring through ``expert_score``, fine through ``cosine_scores``) in
-   front of six full-width bf16 ``llama3_2_1b`` engines (random seeded
-   weights, ring KV, ``max_len`` 256) serving 24 routed requests, once
-   with the serial and once with the overlapped executor. Every kernel's
-   launch counter is reset just before each run and read just after;
-   each must have launched, and the two executors' tokens must be equal.
-4. breakdown — one wave's decode step at the serve phase's largest batch
+   logits must agree. Then a paged ``RoutedServer`` of two such experts
+   (``chunk_len`` 32) serves cohort traffic on the card and on the CPU:
+   greedy tokens must be equal.
+3. serve — the ring-KV main path: an AE-bank matcher (K = 6, 784 -> 128,
+   coarse scoring through ``expert_score``, fine through
+   ``cosine_scores``) in front of six full-width bf16 ``llama3_2_1b``
+   engines (random seeded weights, ring KV, ``max_len`` 256) serving 24
+   routed requests, once with the serial and once with the overlapped
+   executor. Every kernel's launch counter is reset just before each run
+   and read just after; each kernel of the path must have launched, and
+   the two executors' tokens must be equal.
+4. serve_paged — the paged-KV path: the same matcher in front of six
+   paged engines sharing the serve phase's weight tensors (page 8, pool
+   of 1536 pages + trash per expert, ``chunk_len`` 64, 64 prompt tokens
+   per step) serving 24 requests of cohort traffic (shared prefixes,
+   exact duplicates, two-chunk prompts and a wrapping duplicate pair):
+   serial, overlapped, then again on the same server with fresh uids.
+   Every decode layer goes through ``paged_decode_attention`` and never
+   through ``decode_attention``; the prefix, copy-on-write and chunk
+   counters must all move and the pools' books must balance.
+5. breakdown — one wave's decode step at the serve phase's largest batch
    bucket: eager wall time, device time (the step replayed as a CUDA
    graph), the kernels it launches (``torch.profiler``), and the device's
    busy share.
-5. kernels — each kernel against its plain PyTorch version on the same
-   inputs at the shapes the serve phase gave it (tolerance stated), and
+6. kernels — each kernel against its plain PyTorch version on the same
+   inputs at the shapes its serve phase gave it (tolerance stated), and
    its device time beside the plain version's, a library yardstick's and
    its bound (L2 flushed before every timed launch, as the serving path
-   finds it).
+   finds it); ``paged_decode_attention`` must also equal
+   ``decode_attention`` on the gathered view bit for bit.
 
 Then a summary line ``{"kernels": [...]}``, the raw ``nvidia-smi`` name
 and power-limit line, and as the last line
@@ -89,10 +102,14 @@ def main() -> int:
     emit(reference_phase(np, torch, dev))
     serve, shapes = serve_phase(np, torch, dev, ops)
     emit(serve)
+    paged = serve_paged_phase(np, torch, dev, ops, shapes)
+    emit(paged)
     emit(breakdown_phase(np, torch, dev, shapes))
     kernels = kernel_phase(np, torch, dev, ops, shapes)
     for k in kernels:
-        k["launches"] = serve["serial"]["launches"][k["name"]]
+        # each kernel's count from the serial run of the path it serves
+        run = paged if k["name"] == "paged_decode_attention" else serve
+        k["launches"] = run["serial"]["launches"][k["name"]]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -145,7 +162,99 @@ def reference_phase(np, torch, dev):
             "logits_max_abs_err": worst, "logits_scale": scale,
             "logits_tol": "abs 1e-4 x max(|logit|, 1)",
             "tokens_equal": True, "rows": int(toks.shape[0]),
-            "new_tokens": 12}
+            "new_tokens": 12,
+            "paged": paged_reference(np, torch, dev, model, cpu)}
+
+
+def paged_reference(np, torch, dev, model, cpu_params):
+    """A paged, chunked RoutedServer of two reduced f32 experts serves
+    cohort traffic (scaled down from the serve_paged phase: shared
+    prefixes, duplicates, two-chunk prompts, a wrapping duplicate pair)
+    on the card, through the kernels, and on the CPU, through their plain
+    versions: the greedy tokens must be equal."""
+    from repro_torch.core import (ExpertRegistry, ExpertMatcher,
+                                  build_matcher, init_ae)
+    from repro_torch.serve import ExpertEngine, Request, RoutedServer
+
+    rng = np.random.default_rng(SEED + 3)
+    names = ["a", "b"]
+    aes = [init_ae(torch.Generator().manual_seed(SEED + i), device="cpu")
+           for i in range(2)]
+    data = [(rng.random((64, 784), dtype=np.float32), np.arange(64) % 3)
+            for _ in names]
+    m_cpu = build_matcher(aes, names, data, device="cpu")
+    m_dev = ExpertMatcher(_tree(m_cpu.bank_params, lambda t: t.to(dev)),
+                          _tree(m_cpu.bank_states, lambda t: t.to(dev)),
+                          names, m_cpu.centroids.to(dev),
+                          m_cpu.centroid_mask.to(dev))
+    cfg = model.cfg
+    traffic = cohort_traffic(np, rng, cfg.vocab_size, n_cohorts=2,
+                             per_cohort=3, head=16, own=(6, 14),
+                             long=(40, 61), wrap=60)
+    out = {}
+    for key, where, params, matcher in (
+            ("cpu", "cpu", cpu_params, m_cpu),
+            ("card", dev, _tree(cpu_params, lambda t: t.to(dev)), m_dev)):
+        reg = ExpertRegistry()
+        for n in names:
+            reg.add(n, ExpertEngine(model, params, max_len=64,
+                                    kv_layout="paged", chunk_len=32,
+                                    device=where))
+        srv = RoutedServer(matcher, reg, max_batch=8, executor="serial",
+                           prefill_tokens_per_step=32, check_every=1,
+                           device=where)
+        resps = srv.serve([Request(uid=u, features=f, prompt=p,
+                                   max_new_tokens=8)
+                           for u, (f, p, _) in enumerate(traffic)])
+        out[key] = ([r.tokens for r in resps], [r.expert for r in resps],
+                      {k: sum(getattr(reg[e].backend.stats, k)
+                              for e in range(2))
+                       for k in PREFIX_COUNTERS})
+    if out["cpu"][1] != out["card"][1] or not all(
+            np.array_equal(a, b) for a, b in zip(out["cpu"][0],
+                                                 out["card"][0])):
+        raise AssertionError("reference: paged greedy tokens differ between "
+                             "the card and the CPU")
+    if out["cpu"][2] != out["card"][2]:
+        raise AssertionError(f"reference: paged counters differ "
+                             f"{out['cpu'][2]} {out['card'][2]}")
+    return {"requests": len(traffic), "new_tokens": 8, "chunk_len": 32,
+            "tokens_equal": True, "counters": out["card"][2]}
+
+
+PREFIX_COUNTERS = ("prefill_tokens_submitted", "prefill_tokens_computed",
+                   "prefill_rows_computed", "prefix_dup_rows",
+                   "prefix_full_hits", "prefix_pages_shared",
+                   "pages_copied", "suffix_compiles", "decode_steps",
+                   "host_blocks")
+
+
+def cohort_traffic(np, rng, vocab, *, n_cohorts, per_cohort, head, own,
+                   long, wrap):
+    """(features, prompt, kind) triples: ``n_cohorts`` cohorts of
+    ``per_cohort`` clients sharing a ``head``-token prefix plus ``own``
+    tokens of their own, one exact duplicate of each cohort's first
+    prompt, two prompts of ``long`` tokens, and two identical prompts of
+    ``wrap`` tokens. A cohort and each duplicate pair share one 784-d
+    fingerprint, so they route to one expert together: clients of one
+    cohort share a data source, the paper's setting."""
+    out = []
+    for _ in range(n_cohorts):
+        f = rng.random(784, dtype=np.float32)
+        h = rng.integers(0, vocab, size=head)
+        prompts = [np.concatenate([h, rng.integers(
+            0, vocab, size=int(rng.integers(own[0], own[1] + 1)))])
+            for _ in range(per_cohort)]
+        prompts.append(prompts[0].copy())
+        out += [(f, p.astype(np.int32), "cohort") for p in prompts]
+    for _ in range(2):
+        out.append((rng.random(784, dtype=np.float32), rng.integers(
+            0, vocab, size=int(rng.integers(long[0], long[1] + 1))).astype(
+                np.int32), "long"))
+    f = rng.random(784, dtype=np.float32)
+    p = rng.integers(0, vocab, size=wrap).astype(np.int32)
+    out += [(f, p, "wrap"), (f, p.copy(), "wrap")]
+    return out
 
 
 def _tree(node, fn):
@@ -158,6 +267,8 @@ def _tree(node, fn):
 # serve: the main path
 # ---------------------------------------------------------------------------
 
+#: the kernels the ring-KV main path runs (serve phase)
+RING_PATH = ("expert_score", "cosine_scores", "decode_attention")
 DATASETS = [("stl10", 10), ("mnist", 10), ("har", 6), ("reuters", 4),
             ("nlos", 3), ("db", 3)]
 
@@ -235,9 +346,12 @@ def serve_phase(np, torch, dev, ops):
                     for e, b in zip(engines, before))
         blocks = sum(e.stats.host_blocks - b[0]
                      for e, b in zip(engines, before))
-        if min(launches.values()) == 0:
+        if not all(launches[k] for k in RING_PATH):
             raise AssertionError(f"{executor}: a kernel never launched on "
                                  f"the main path: {launches}")
+        if launches["paged_decode_attention"]:
+            raise AssertionError(f"{executor}: the paged kernel ran on the "
+                                 f"ring path: {launches}")
         if launches["decode_attention"] != cfg.n_layers * steps:
             raise AssertionError(
                 f"{executor}: decode_attention launched "
@@ -271,6 +385,7 @@ def serve_phase(np, torch, dev, ops):
                             for _, sb in e.core._prefill_shapes) + 16 - 2,
         "n_classes": int(matcher.centroids.shape[1]),
         "max_len": 256, "cfg": cfg, "engine": engines[0],
+        "matcher": matcher, "registry": registry,
     }
     return ({"phase": "serve", "config": cfg.name, "experts": len(names),
              "requests": len(reqs), "max_new_tokens": 16,
@@ -278,7 +393,174 @@ def serve_phase(np, torch, dev, ops):
              "param_gb": mem_gb, "tokens_equal": True,
              "serial": runs["serial"], "overlapped": runs["overlapped"],
              "kernel_shapes": {k: v for k, v in shapes.items()
-                               if k not in ("cfg", "engine")}}, shapes)
+                               if k not in ("cfg", "engine", "matcher",
+                                            "registry")}}, shapes)
+
+
+# ---------------------------------------------------------------------------
+# serve_paged: the paged-KV path
+# ---------------------------------------------------------------------------
+
+
+def serve_paged_phase(np, torch, dev, ops, shapes):
+    """Six paged ``llama3_2_1b`` engines at published widths behind the
+    serve phase's matcher, sharing its engines' weight tensors (no second
+    copy): page 8, ``max_len`` 256, the default pool of 3 x 16 x 32 =
+    1536 pages + trash per expert, ``chunk_len`` 64, 64 prompt tokens of
+    pending chunks per shard per step. 24 requests of 16 new tokens: 4
+    cohorts of 4 (a 48-token prefix + 8-16 own tokens, bucket 64), one
+    exact duplicate per cohort, 2 prompts of 100-128 tokens (two chunks)
+    and 2 identical 180-token prompts (four chunks; decode wraps into
+    their prompt pages, so copy-on-write)."""
+    from repro_torch.core import ExpertRegistry
+    from repro_torch.serve import ExpertEngine, Request, RoutedServer
+
+    cfg, matcher, ring = shapes["cfg"], shapes["matcher"], shapes["registry"]
+    model = shapes["engine"].model
+    rng = np.random.default_rng(SEED + 5)
+    traffic = cohort_traffic(np, rng, cfg.vocab_size, n_cohorts=4,
+                             per_cohort=4, head=48, own=(8, 16),
+                             long=(100, 128), wrap=180)
+    assert len(traffic) == 24
+
+    def fleet():
+        reg = ExpertRegistry()
+        for e in range(len(ring)):
+            reg.add(ring[e].name, ExpertEngine(
+                model, ring[e].backend.params, max_len=256,
+                kv_layout="paged", page_size=8, chunk_len=64, device=dev))
+        return reg
+
+    def requests(uid0, tr=traffic):
+        return [Request(uid=uid0 + u, features=f, prompt=p,
+                        max_new_tokens=16) for u, (f, p, _) in enumerate(tr)]
+
+    # warm-up traffic of the same shapes on a fleet of its own
+    warm = cohort_traffic(np, np.random.default_rng(SEED + 6), cfg.vocab_size,
+                          n_cohorts=4, per_cohort=4, head=48, own=(8, 16),
+                          long=(100, 128), wrap=180)
+    RoutedServer(matcher, fleet(), executor="serial",
+                 prefill_tokens_per_step=64, device=dev).serve(
+        requests(10_000, warm))
+    torch.cuda.synchronize()
+
+    def run(server, reg, uid0, label):
+        engines = [reg[e].backend for e in range(len(reg))]
+        before = [e.stats.as_dict() for e in engines]
+        seen = []
+        for e in engines:
+            e.core._paged_decode = _record_decode(e.core, seen)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        resps = server.serve(requests(uid0))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = ops.launches()
+        for e in engines:
+            del e.core._paged_decode
+        delta = {k: sum(e.stats.as_dict()[k] - b[k]
+                        for e, b in zip(engines, before))
+                 for k in PREFIX_COUNTERS if k != "suffix_compiles"}
+        delta["suffix_shapes"] = sum(e.stats.suffix_compiles
+                                     for e in engines)
+        for r, (f, p, _) in zip(resps, traffic):
+            if r.tokens.shape != (16,) or not (
+                    (r.tokens >= 0) & (r.tokens < cfg.padded_vocab)).all():
+                raise AssertionError(f"{label}: bad response {r}")
+        steps = delta["decode_steps"]
+        if launches["paged_decode_attention"] != cfg.n_layers * steps:
+            raise AssertionError(
+                f"{label}: paged_decode_attention launched "
+                f"{launches['paged_decode_attention']} times for {steps} "
+                f"paged decode steps of {cfg.n_layers} layers")
+        if launches["decode_attention"]:
+            raise AssertionError(f"{label}: the ring decode kernel ran on "
+                                 f"the paged path: {launches}")
+        for e in engines:
+            pool = e.core.pool
+            pool.check()
+            cached = sum(1 for k in e.core.prefix_cache._lru if k[0] == "pg")
+            if pool.used_count(0) != cached:
+                raise AssertionError(f"{label}: {pool.used_count(0)} pages "
+                                     f"in use after the drain, {cached} "
+                                     "held by the prefix cache")
+        n_tok = sum(len(r.tokens) for r in resps)
+        # the largest decode bucket and the most live slots kernel 4 read
+        # at it: slots with 0 <= pos < t after the step, t = q_pos + 1
+        rows = max(r_ for r_, _, _ in seen)
+        live = max(int(((p >= 0) & (p < t[:, None])).sum(-1).max())
+                   for r_, p, t in seen if r_ == rows)
+        return resps, {
+            "seconds": dt, "req_per_s": len(resps) / dt,
+            "generated_tok_per_s": n_tok / dt, "tokens": n_tok,
+            "launches": launches, **delta,
+            "routed": sorted({r.expert for r in resps}),
+            "pages_in_use_after": sum(e.core.pool.used_count(0)
+                                      for e in engines),
+            "decode_rows_max": rows, "live_slots_at_max_rows": live}
+
+    reg_s = fleet()
+    srv_s = RoutedServer(matcher, reg_s, executor="serial",
+                         prefill_tokens_per_step=64, device=dev)
+    resp_s, serial = run(srv_s, reg_s, 0, "serial")
+    del srv_s, reg_s
+    reg_o = fleet()
+    srv_o = RoutedServer(matcher, reg_o, executor="overlapped",
+                         prefill_tokens_per_step=64, device=dev)
+    resp_o, overlapped = run(srv_o, reg_o, 0, "overlapped")
+    _, again = run(srv_o, reg_o, 100, "again")
+    for a, b in zip(resp_s, resp_o):
+        if a.expert != b.expert or not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"serial and overlapped paged tokens differ "
+                                 f"at uid {a.uid}")
+    for label, r in (("serial", serial), ("overlapped", overlapped)):
+        if not (r["prefix_dup_rows"] and r["pages_copied"]
+                and r["suffix_shapes"] and r["launches"]["expert_score"]
+                and r["launches"]["cosine_scores"]
+                and r["prefill_tokens_computed"]
+                < r["prefill_tokens_submitted"]):
+            raise AssertionError(f"{label}: a paged counter did not move: "
+                                 f"{r}")
+    if not again["prefix_full_hits"]:
+        raise AssertionError(f"the repeat run hit no cached prefix: {again}")
+
+    # the same requests through the ring engines, serial: tokens and time
+    # reported, not asserted (bf16 at full width: the packed paged
+    # prefills run other shapes)
+    ring_srv = RoutedServer(matcher, ring, executor="serial", device=dev)
+    steps0 = sum(ring[e].backend.stats.decode_steps for e in range(len(ring)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resp_r = ring_srv.serve(requests(0))
+    torch.cuda.synchronize()
+    ring_run = {"seconds": time.perf_counter() - t0, "decode_steps": sum(
+        ring[e].backend.stats.decode_steps for e in range(len(ring))) - steps0}
+    kinds = [k for _, _, k in traffic]
+    same = [bool(np.array_equal(a.tokens, b.tokens))
+            for a, b in zip(resp_s, resp_r)]
+    cohort = [s_ for s_, k in zip(same, kinds) if k == "cohort"]
+    # the shapes kernel 4 saw in the serial run: its largest decode
+    # bucket, at the fullest live-slot count any step of that bucket had
+    shapes["paged"] = {"rows": serial["decode_rows_max"],
+                       "live": serial["live_slots_at_max_rows"],
+                       "n_pages": reg_o[0].backend.core.pool.n_pages,
+                       "page": 8, "n_logical": 32}
+    return {"phase": "serve_paged", "config": cfg.name,
+            "experts": len(ring), "requests": len(traffic),
+            "max_new_tokens": 16, "kv": "paged", "page": 8, "max_len": 256,
+            "chunk_len": 64, "prefill_tokens_per_step": 64,
+            "pool_pages_per_expert": reg_o[0].backend.core.pool.n_pages,
+            "pool_gb": sum(t.numel() * t.element_size()
+                           for t in reg_o[0].backend.core.kv_pool.values())
+            * len(ring) / 1e9,
+            "traffic": {k: kinds.count(k) for k in sorted(set(kinds))},
+            "tokens_equal_serial_overlapped": True,
+            "serial": serial, "overlapped": overlapped, "again": again,
+            "ring_serial_same_traffic": ring_run,
+            "ring_equal_share_cohort": sum(cohort) / len(cohort),
+            "ring_equal_share_all": sum(same) / len(same),
+            "kernel_shape": shapes["paged"]}
 
 
 # ---------------------------------------------------------------------------
@@ -546,7 +828,125 @@ def kernel_phase(np, torch, dev, ops, shapes):
         "F.scaled_dot_product_attention(enable_gqa=True, bool mask)",
         2 * (2 * B3 * Hq * dh + 2 * B3 * live * KV * dh) + 4 * (S + 1),
         4 * B3 * Hq * live * dh, "bfloat16", [B3, Hq, KV, dh, S, live]))
+
+    # -- kernel 4: paged_decode_attention over one paged decode step's 16
+    # layers, at the serve_paged phase's largest decode bucket ----------
+    ps = shapes["paged"]
+    B4, page, nlp, P = ps["rows"], ps["page"], ps["n_logical"], ps["n_pages"]
+    live4 = ps["live"]
+    pool_k = torch.randn(P + 1, L, page, KV, dh, generator=gen,
+                         device=dev).to(bf)
+    pool_v = torch.randn(P + 1, L, page, KV, dh, generator=gen,
+                         device=dev).to(bf)
+    q4 = torch.randn(B4, Hq, dh, generator=gen, device=dev).to(bf)
+    tbl4, pos4, t4 = paged_case(np, torch, dev, B4, nlp, page, P, live4)
+    got = ops.paged_decode_attention(q4, pool_k[:, 0], pool_v[:, 0], tbl4,
+                                     t4, pos4)
+    want = ops.paged_decode_attention_plain(q4, pool_k[:, 0], pool_v[:, 0],
+                                            tbl4, t4, pos4)
+    same_as_ring = paged_equals_ring(torch, ops, q4, pool_k[:, 0],
+                                     pool_v[:, 0], tbl4, t4, pos4, 0)
+    # the other page size and a window: plain version and bit equality
+    extra = {}
+    for name, pg, n, win in (("page16", 16, 16, 0), ("window", 8, 32, 40)):
+        pk = torch.randn(3 * B4 * n + 1, 2, pg, KV, dh, generator=gen,
+                         device=dev).to(bf)
+        pv = torch.randn(pk.shape, generator=gen, device=dev).to(bf)
+        tb, po, tq = paged_case(np, torch, dev, B4, n, pg, pk.shape[0] - 1,
+                                live4)
+        a = ops.paged_decode_attention(q4, pk[:, 1], pv[:, 1], tb, tq, po,
+                                       window=win)
+        b = ops.paged_decode_attention_plain(q4, pk[:, 1], pv[:, 1], tb, tq,
+                                             po, window=win)
+        err = (a.float() - b.float()).abs().max().item()
+        if not torch.allclose(a.float(), b.float(), rtol=4e-3, atol=4e-3):
+            raise AssertionError(f"paged_decode_attention {name}: max abs "
+                                 f"err {err}")
+        extra[name] = {"max_abs_err": err, "equals_ring": paged_equals_ring(
+            torch, ops, q4, pk[:, 1], pv[:, 1], tb, tq, po, win)}
+    kern4 = step(lambda i: ops.paged_decode_attention(
+        q4, pool_k[:, i], pool_v[:, i], tbl4, t4, pos4))
+    plain4 = step(lambda i: ops.paged_decode_attention_plain(
+        q4, pool_k[:, i], pool_v[:, i], tbl4, t4, pos4))
+    idx = tbl4.long()
+    amask4 = ((pos4 >= 0) & (pos4 <= t4))[None, None, None, :]
+
+    def sdpa4(i):
+        kd = pool_k[:, i][idx].reshape(B4, nlp * page, KV, dh)
+        vd = pool_v[:, i][idx].reshape(B4, nlp * page, KV, dh)
+        return F.scaled_dot_product_attention(
+            q4[:, :, None, :], kd.transpose(1, 2), vd.transpose(1, 2),
+            attn_mask=amask4, enable_gqa=True)
+
+    # bytes it must move: the distinct live (page, slot) pairs' K/V, the
+    # table, kv_pos, q and out
+    live_slots = torch.nonzero((pos4 >= 0) & (pos4 <= t4))[:, 0]
+    phys = tbl4[:, live_slots // page].long() * page \
+        + (live_slots % page)[None, :]
+    n_phys = int(torch.unique(phys).numel())
+    row = record(
+        "paged_decode_attention",
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:123", got, want, 4e-3, 4e-3,
+        kern4, plain4, step(sdpa4),
+        "composite: paged_gather index + F.scaled_dot_product_attention("
+        "enable_gqa=True, bool mask)",
+        2 * (2 * B4 * Hq * dh + 2 * n_phys * KV * dh) + 4 * (B4 * nlp
+                                                         + nlp * page + 1),
+        4 * B4 * Hq * live4 * dh, "bfloat16",
+        [B4, Hq, KV, dh, page, nlp, P + 1, live4, n_phys])
+    row.update({"equals_ring_bitwise": same_as_ring, "cases": extra,
+                "page_stride": pool_k[:, 0].stride(0)})
+    out.append(row)
     return out
+
+
+def _record_decode(core, seen):
+    """``core._paged_decode`` that also keeps, per step, the wave's rows
+    and its post-step ``pos``/``t`` (fresh tensors each step: nothing is
+    copied or synchronised while the path runs)."""
+    step = core._paged_decode
+
+    def wrapped(w):
+        logits = step(w)
+        seen.append((w.tok.shape[1], w.pos, w.t))
+        return logits
+    return wrapped
+
+
+def paged_case(np, torch, dev, B, nlp, page, n_pages, live):
+    """A scrambled page table (B, nlp) over ``n_pages`` pages + trash, in
+    which every row shares its first (prefix) page with row 0, the pages
+    holding the ``live`` written slots are distinct otherwise, and the
+    tail maps to the trash page; kv_pos and q_pos of the decode step
+    that wrote slot ``live - 1``."""
+    rng = np.random.default_rng(SEED + B + page)
+    n_valid = -(-live // page)
+    perm = rng.permutation(n_pages)
+    tbl = np.full((B, nlp), n_pages, np.int32)
+    for b in range(B):
+        tbl[b, :n_valid] = perm[b * nlp:b * nlp + n_valid]
+    tbl[1:, 0] = tbl[0, 0]
+    C = nlp * page
+    pos = np.where(np.arange(C) < live, np.arange(C), -1).astype(np.int32)
+    return (torch.from_numpy(tbl).to(dev), torch.from_numpy(pos).to(dev),
+            torch.tensor(live - 1, dtype=torch.int32, device=dev))
+
+
+def paged_equals_ring(torch, ops, q, kp, vp, tbl, q_pos, kv_pos, window):
+    """Kernel 4 against kernel 3 on the gathered, contiguous view: the
+    same tiles in the same order, so the results must be equal."""
+    from repro_torch.models.attention import paged_gather
+    kd, vd = paged_gather(kp, vp, tbl)
+    a = ops.paged_decode_attention(q, kp, vp, tbl, q_pos, kv_pos,
+                                   window=window)
+    b = ops.decode_attention(q, kd.contiguous(), vd.contiguous(), q_pos,
+                             kv_pos, window=window)
+    if not torch.equal(a, b):
+        raise AssertionError(
+            "paged_decode_attention differs from decode_attention on the "
+            f"gathered view: max {(a.float() - b.float()).abs().max()}")
+    return True
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every entry point: (argtypes); all return int (cudaError_t)
 SIGNATURES = {
     # x, w1, b1, w2, b2, out, B, D, H, K, stream
@@ -43,6 +44,10 @@ SIGNATURES = {
     # is_bf16, stream
     "decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _I, _P],
+    # q, k_pages, v_pages, table, q_pos, kv_pos, out, B, H, KV, n_lp, page,
+    # page_stride, dh, window, scale, is_bf16, stream
+    "paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _L, _I, _I, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

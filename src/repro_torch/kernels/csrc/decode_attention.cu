@@ -1,32 +1,51 @@
-// GQA flash-decode of one query token per row against a ring KV cache.
+// GQA flash-decode of one query token per row, against a ring KV cache
+// (decode_attention) or through a per-row page table into a shared page
+// pool (paged_decode_attention). Both share one kernel body, templated
+// on how a (row, slot, kv head) address is found.
 //
-// Replaces the TPU kernel src/repro/kernels/decode_attention.py:
-// decode_attention_pallas (body _kernel). That kernel walks S blocks in
-// grid order and carries m/l/acc in VMEM scratch between grid steps; on
-// Hopper blocks run in no order, so one block per (row, kv head) loops
-// over S itself and keeps the online-softmax state in registers.
+// Replaces the TPU kernels src/repro/kernels/decode_attention.py:
+// decode_attention_pallas (body _kernel) and
+// paged_decode_attention_pallas (body _paged_kernel, which is _kernel
+// with a page-table index map). Those walk S blocks in grid order and
+// carry m/l/acc in VMEM scratch between grid steps; on Hopper blocks
+// run in no order, so one block per (row, kv head) loops over S itself
+// and keeps the online-softmax state in registers.
 //
-// Layouts (all contiguous): q (B, H, dh); k, v (B, S, KV, dh); q_pos ()
-// int32 on the device, shared by all rows; kv_pos (S,) int32, -1 = empty
-// slot; out (B, H, dh) in q's dtype. Head h*G + g of q reads kv head h.
+// Layouts: q (B, H, dh) contiguous; q_pos () int32 on the device,
+// shared by all rows; kv_pos (S,) int32 per logical slot, -1 = empty;
+// out (B, H, dh) in q's dtype. Head h*G + g of q reads kv head h.
+//   ring:  k, v (B, S, KV, dh) contiguous; slot s of row b at
+//          ((b*S + s)*KV + h)*dh.
+//   paged: k, v are one layer's view (P1, page, KV, dh) of a pool whose
+//          page index is strided (page_stride elements apart, e.g. the
+//          (P1, L, page, KV, dh) pool's layer i) with each page's
+//          (page, KV, dh) contiguous; table (B, n_lp) int32 physical
+//          page per logical page, S = n_lp * page; slot s of row b at
+//          table[b*n_lp + s/page]*page_stride + ((s%page)*KV + h)*dh.
+//          The block reads its table row itself (the TPU kernel gets it
+//          by scalar prefetch), so no dense per-row K/V copy is made.
 //
 // Design: block = G warps, warp g owns query head g of the group. Each
-// TILE of 32 keys is staged once in shared memory as f32 and read by all
-// G warps (the GQA reuse). Scoring: lane j takes key j of the tile (rows
-// padded by one float so the 32 lanes hit 32 banks). Online softmax per
-// warp: m/l in registers, acc spread over lanes as dh/32 values each.
-// Math matches the reference: scores in f32, masked scores = -1e30
-// (NEG_INF, so a fully masked row averages V like a uniform softmax),
-// keys past S = -inf (contribute exactly 0), out = acc / max(l, 1e-30).
+// TILE of 32 logical slots is staged once in shared memory as f32 and
+// read by all G warps (the GQA reuse). Only the slot address differs
+// between the layouts: the ring's is plain arithmetic, computed in the
+// load loop; the paged one costs a table read, so lane j of warp 0 reads
+// it once per tile for slot j into shared memory (Addr::kStaged). The
+// paged kernel thus visits the same tiles in the same order with the
+// same arithmetic and equals the ring kernel on the gathered view bit
+// for bit. Scoring: lane j takes key j of the tile (rows padded
+// by one float so the 32 lanes hit 32 banks). Online softmax per warp:
+// m/l in registers, acc spread over lanes as dh/32 values each. Math
+// matches the reference: scores in f32, masked scores = -1e30 (NEG_INF,
+// so a fully masked row averages V like a uniform softmax), keys past S
+// = -inf (contribute exactly 0), out = acc / max(l, 1e-30).
 //
 // Bound on the H100 at the main path's shapes (B <= 16, S = 256, KV 8,
 // dh 64, bf16): bytes. It must read K/V of the live slots only, 2*B*n*
-// KV*dh*2 bytes for n live slots (n <= 79 of 256 on the main path: a
-// prompt bucket <= 64 plus 15 decode steps), for 4*B*H*n*dh flops, about
-// 1 flop per byte. The design reads kv_pos first and skips every 32-slot
-// tile with no live slot, reads each live tile's K/V from device memory
-// once per (row, kv head) into shared memory, and never writes scores
-// out.
+// KV*dh*2 bytes for n live slots, for 4*B*H*n*dh flops, about 1 flop
+// per byte. The design reads kv_pos first and skips every 32-slot tile
+// with no live slot, reads each live tile's K/V from device memory once
+// per (row, kv head) into shared memory, and never writes scores out.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,18 +75,44 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int DH>
+// Element offset of (row b, logical slot s, kv head h, d = 0).
+struct RingAddr {
+  static constexpr bool kStaged = false;
+  int S, KV;
+  template <int DH>
+  __device__ __forceinline__ size_t at(int b, int s, int h) const {
+    return (((size_t)b * S + s) * KV + h) * DH;
+  }
+};
+
+struct PagedAddr {
+  static constexpr bool kStaged = true;
+  const int* table;               // (B, n_lp)
+  int n_lp, page, KV;
+  long long page_stride;          // elements between physical pages
+  template <int DH>
+  __device__ __forceinline__ size_t at(int b, int s, int h) const {
+    const int phys = table[(size_t)b * n_lp + s / page];
+    return (size_t)phys * page_stride +
+           ((size_t)(s % page) * KV + h) * DH;
+  }
+};
+
+template <typename T, int DH, typename Addr>
 __global__ void decode_attention_kernel(const T* __restrict__ q,
                                         const T* __restrict__ k,
                                         const T* __restrict__ v,
                                         const int* __restrict__ q_pos_p,
                                         const int* __restrict__ kv_pos,
-                                        T* __restrict__ out, int S, int KV,
-                                        int G, int window, float scale) {
+                                        T* __restrict__ out, Addr addr,
+                                        int S, int KV, int G, int window,
+                                        float scale) {
   constexpr int PER_LANE = DH / 32;
   __shared__ float ks[TILE][DH + 1];
   __shared__ float vs[TILE][DH];
   __shared__ float qs[MAX_G][DH];
+  // this tile's slot addresses, for a policy that stages them
+  __shared__ size_t base[Addr::kStaged ? TILE : 1];
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -106,14 +151,22 @@ __global__ void decode_attention_kernel(const T* __restrict__ q,
       }
       // every warp reads the same kv_pos, so the skip is block-uniform
       if (skip_dead && !__any_sync(FULL, ok)) continue;
-      __syncthreads();  // qs written / previous tile consumed
+      // base[] was last read before the previous tile's second barrier
+      if constexpr (Addr::kStaged) {
+        if (warp == 0 && s < S) base[lane] = addr.template at<DH>(b, s, h);
+      }
+      __syncthreads();  // qs, base written / previous tile consumed
       for (int i = threadIdx.x; i < TILE * DH; i += nthreads) {
         const int j = i / DH;
         const int d = i % DH;
         const int sj = t0 + j;
         float kf = 0.f, vf = 0.f;
         if (sj < S) {
-          const size_t off = (((size_t)b * S + sj) * KV + h) * DH + d;
+          size_t off;
+          if constexpr (Addr::kStaged)
+            off = base[j] + d;
+          else
+            off = addr.template at<DH>(b, sj, h) + d;
           kf = load_f(k + off);
           vf = load_f(v + off);
         }
@@ -151,11 +204,11 @@ __global__ void decode_attention_kernel(const T* __restrict__ q,
   for (int i = 0; i < PER_LANE; ++i) store_f(ob + lane + 32 * i, acc[i] * inv);
 }
 
-template <typename T>
+template <typename T, typename Addr>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* q_pos, const void* kv_pos, void* out, int B,
-                   int H, int KV, int S, int dh, int window, float scale,
-                   cudaStream_t stream) {
+                   const void* q_pos, const void* kv_pos, void* out,
+                   const Addr& addr, int B, int H, int KV, int S, int dh,
+                   int window, float scale, cudaStream_t stream) {
   const int G = H / KV;
   const dim3 grid(KV, B);
   const dim3 block(32 * G);
@@ -167,21 +220,37 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   T* ot = static_cast<T*>(out);
   switch (dh) {
     case 32:
-      decode_attention_kernel<T, 32><<<grid, block, 0, stream>>>(
-          qt, kt, vt, qp, kp, ot, S, KV, G, window, scale);
+      decode_attention_kernel<T, 32, Addr><<<grid, block, 0, stream>>>(
+          qt, kt, vt, qp, kp, ot, addr, S, KV, G, window, scale);
       break;
     case 64:
-      decode_attention_kernel<T, 64><<<grid, block, 0, stream>>>(
-          qt, kt, vt, qp, kp, ot, S, KV, G, window, scale);
+      decode_attention_kernel<T, 64, Addr><<<grid, block, 0, stream>>>(
+          qt, kt, vt, qp, kp, ot, addr, S, KV, G, window, scale);
       break;
     case 128:
-      decode_attention_kernel<T, 128><<<grid, block, 0, stream>>>(
-          qt, kt, vt, qp, kp, ot, S, KV, G, window, scale);
+      decode_attention_kernel<T, 128, Addr><<<grid, block, 0, stream>>>(
+          qt, kt, vt, qp, kp, ot, addr, S, KV, G, window, scale);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+template <typename Addr>
+int dispatch(const void* q, const void* k, const void* v, const void* q_pos,
+             const void* kv_pos, void* out, const Addr& addr, int B, int H,
+             int KV, int S, int dh, int window, float scale, int is_bf16,
+             void* stream) {
+  if (KV <= 0 || H % KV != 0 || H / KV > MAX_G || B <= 0 || S <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      is_bf16 ? launch<__nv_bfloat16>(q, k, v, q_pos, kv_pos, out, addr, B,
+                                      H, KV, S, dh, window, scale, st)
+              : launch<float>(q, k, v, q_pos, kv_pos, out, addr, B, H, KV,
+                              S, dh, window, scale, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -191,13 +260,23 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 void* out, int B, int H, int KV, int S,
                                 int dh, int window, float scale, int is_bf16,
                                 void* stream) {
-  if (KV <= 0 || H % KV != 0 || H / KV > MAX_G || B <= 0 || S <= 0)
+  const RingAddr addr{S, KV};
+  return dispatch(q, k, v, q_pos, kv_pos, out, addr, B, H, KV, S, dh, window,
+                  scale, is_bf16, stream);
+}
+
+extern "C" int paged_decode_attention(const void* q, const void* k_pages,
+                                      const void* v_pages, const void* table,
+                                      const void* q_pos, const void* kv_pos,
+                                      void* out, int B, int H, int KV,
+                                      int n_lp, int page,
+                                      long long page_stride, int dh,
+                                      int window, float scale, int is_bf16,
+                                      void* stream) {
+  if (n_lp <= 0 || page <= 0 || page_stride < (long long)page * KV * dh)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k, v, q_pos, kv_pos, out, B, H, KV,
-                                      S, dh, window, scale, st)
-              : launch<float>(q, k, v, q_pos, kv_pos, out, B, H, KV, S, dh,
-                              window, scale, st);
-  return static_cast<int>(err);
+  const PagedAddr addr{static_cast<const int*>(table), n_lp, page, KV,
+                       page_stride};
+  return dispatch(q, k_pages, v_pages, q_pos, kv_pos, out, addr, B, H, KV,
+                  n_lp * page, dh, window, scale, is_bf16, stream);
 }

@@ -7,12 +7,15 @@ from .cosine_topk import cosine_scores, cosine_scores_plain
 from .decode_attention import decode_attention, decode_attention_plain
 from .expert_score import (expert_score, expert_score_folded,
                            expert_score_plain, fold_bank)
+from .paged_decode_attention import (paged_decode_attention,
+                                     paged_decode_attention_plain)
 
 #: every kernel wrapper of the port, by name
 WRAPPERS = {
     "expert_score": expert_score_folded,
     "cosine_scores": cosine_scores,
     "decode_attention": decode_attention,
+    "paged_decode_attention": paged_decode_attention,
 }
 
 
@@ -28,4 +31,5 @@ def launches() -> dict:
 __all__ = ["WRAPPERS", "cosine_scores", "cosine_scores_plain",
            "decode_attention", "decode_attention_plain", "expert_score",
            "expert_score_folded", "expert_score_plain", "fold_bank",
-           "launches", "reset_launches"]
+           "launches", "paged_decode_attention",
+           "paged_decode_attention_plain", "reset_launches"]

@@ -5,6 +5,10 @@ Every family implements:
   prefill(params, batch, capacity=None) -> (last_logits (B, V), cache)
   decode(params, cache, batch) -> (logits (B, V), cache)
   init_cache(batch_size, capacity, device) -> zeroed cache
+
+and, where ``supports_paged_kv``, the paged cache protocol
+(``init_paged_pool``, ``paged_prefill``, ``paged_prefill_suffix``,
+``paged_decode``).
 """
 from __future__ import annotations
 
@@ -36,21 +40,31 @@ class BaseModel:
     def init_cache(self, batch_size: int, capacity: int, device=None):
         raise NotImplementedError
 
-    # -- protocols of later slices ------------------------------------------
+    # -- paged KV cache protocol (opt-in per family) ------------------------
     @property
     def supports_paged_kv(self) -> bool:
-        """The paged KV layout arrives with port slice A6."""
+        """Whether this family implements the paged cache protocol
+        (``init_paged_pool`` / ``paged_prefill`` / ``paged_prefill_suffix``
+        / ``paged_decode``)."""
         return False
 
-    def init_paged_pool(self, n_pages: int, page: int):
-        raise NotImplementedError("paged KV arrives with port slice A6")
+    def init_paged_pool(self, n_pages: int, page: int, device=None):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support the paged KV layout")
 
     def paged_prefill(self, *args, **kwargs):
-        raise NotImplementedError("paged KV arrives with port slice A6")
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support the paged KV layout")
+
+    def paged_prefill_suffix(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support the paged KV layout")
 
     def paged_decode(self, *args, **kwargs):
-        raise NotImplementedError("paged KV arrives with port slice A6")
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support the paged KV layout")
 
+    # -- protocols of later slices -------------------------------------------
     @property
     def supports_verify(self) -> bool:
         """Speculative verify arrives with port slice A8."""

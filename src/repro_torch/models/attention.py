@@ -1,6 +1,6 @@
 """GQA attention: blockwise online-softmax (flash) for prefill, plain
-masked attention for short queries, sliding-window support, and the
-ring KV cache.
+masked attention for short queries, sliding-window support, the ring KV
+cache and the paged KV cache protocol.
 
 Prefill attention is plain PyTorch ops, as it is plain array code in
 the reference; single-token decode goes through the hand-written
@@ -163,3 +163,91 @@ def cache_append(cache, k1, v1):
     cache["pos"] = cache["pos"].index_copy(0, slot, t.reshape(1))
     cache["t"] = t + 1
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache protocol (single-layer primitives)
+#
+# K/V live in a shared pool of fixed-size pages (n_pages + 1, page, KV,
+# dh); the trailing page is the *trash page*, a write-discard target for
+# rows whose computed KV is dropped (batch padding, deduplicated rows).
+# Each row carries a page table (B, C // page) of physical page ids;
+# prefix-sharing rows map leading logical pages to the same physical
+# pages. pos/t tracking is the ring cache's: positions are logical-slot
+# indexed and rows advance in lockstep. Allocation and refcounting are
+# host-side (``serve.kvcache.PagePool``); these helpers are the device
+# half. Where the reference returns a new pool, the port writes the
+# pool's storage in place: the pool is the engine's largest buffer and
+# the reference donates it on every call.
+# ---------------------------------------------------------------------------
+
+
+def paged_gather(k_pages, v_pages, table):
+    """Materialise each row's logical KV view through its page table.
+
+    k_pages, v_pages: (P1, page, KV, dh), possibly a strided layer view
+    of a (P1, L, page, KV, dh) pool; table: (B, n) int32 physical page
+    per logical page. Returns dense (B, n * page, KV, dh) copies. The
+    serving decode never gathers: it reads the pool through
+    ``paged_decode_attention``. Suffix prefill (``paged_prefill_suffix``)
+    still gathers each row's prefix pages on every layer, as the
+    reference does; the plain versions and the tests gather too.
+    """
+    B, n = table.shape
+    page, KV, dh = k_pages.shape[1:]
+    idx = table.long()
+    k = k_pages[idx].reshape(B, n * page, KV, dh)
+    v = v_pages[idx].reshape(B, n * page, KV, dh)
+    return k, v
+
+
+def paged_scatter_pages(k_pages, v_pages, scatter_tbl, k, v):
+    """Write whole prefill pages in place: k, v (B, S, KV, dh) with S a
+    multiple of the page size; scatter_tbl (B, S // page) physical
+    destinations. Rows whose compute is discarded point every entry at
+    the trash page; which of several writes to it lands is undefined and
+    harmless (a real row reads the trash page only at masked slots)."""
+    B, S, KV, dh = k.shape
+    npp = scatter_tbl.shape[1]
+    page = S // npp
+    idx = scatter_tbl.long()
+    k_pages[idx] = k.reshape(B, npp, page, KV, dh).to(k_pages.dtype)
+    v_pages[idx] = v.reshape(B, npp, page, KV, dh).to(v_pages.dtype)
+    return k_pages, v_pages
+
+
+def suffix_attend(q, k_suf, v_suf, pk, pv, *, offset, window=0, chunk=0):
+    """Suffix-prefill attention: queries at absolute positions
+    ``offset .. offset + Ssuf - 1`` attend over the cached prefix KV
+    (absolute positions ``0 .. offset - 1``, gathered through a page
+    table with :func:`paged_gather`) concatenated with the suffix's own
+    freshly computed KV.
+
+    q, k_suf, v_suf: (B, Ssuf, ·, dh); pk, pv: (B, offset, KV, dh).
+    Causal masking means prefix positions never attend to the suffix, so
+    a greedy decode seeded from suffix logits matches the monolithic
+    prefill's. Rows whose prefix table points at the trash page read
+    finite garbage; the caller discards their outputs.
+    """
+    Ssuf = q.shape[1]
+    dev = q.device
+    positions = torch.arange(offset, offset + Ssuf, dtype=torch.int32,
+                             device=dev)
+    fk = torch.cat([pk.to(k_suf.dtype), k_suf], dim=1)
+    fv = torch.cat([pv.to(v_suf.dtype), v_suf], dim=1)
+    kv_pos = torch.cat([torch.arange(offset, dtype=torch.int32, device=dev),
+                        positions])
+    return attention(q, fk, fv, q_pos=positions, kv_pos=kv_pos,
+                     window=window, chunk=chunk)
+
+
+def paged_append(k_pages, v_pages, tbl_col, offset, k1, v1):
+    """Write one decoded token per row in place: tbl_col (B,) physical
+    pages, offset () in-page slot (shared: rows decode in lockstep), k1,
+    v1 (B, 1, KV, dh). Padding rows all write the trash page at the same
+    slot; the winner is undefined and harmless (real rows read the trash
+    page only at masked slots, and padding rows' outputs are dropped)."""
+    idx = (tbl_col.long(), offset.long().expand(tbl_col.shape[0]))
+    k_pages.index_put_(idx, k1[:, 0].to(k_pages.dtype))
+    v_pages.index_put_(idx, v1[:, 0].to(v_pages.dtype))
+    return k_pages, v_pages

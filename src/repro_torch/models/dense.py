@@ -10,6 +10,12 @@ on its updated ring cache, with ``q_pos = t`` shared across rows.
 Decode updates the KV cache in place (the reference returns a new
 cache; the port writes the one slot per layer into the existing buffers
 and returns the same dict), so a wave's cache is allocated once.
+
+The paged protocol keeps the reference's pool layout ``(P1, L, page, KV,
+dh)``. Paged prefills scatter whole pages into the pool in place; each
+paged decode layer writes its new K/V slot through the table column and
+then launches ``paged_decode_attention`` on that layer's strided view of
+the pool — the reference gathers a dense per-row copy instead.
 """
 from __future__ import annotations
 
@@ -20,8 +26,11 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..kernels.decode_attention import decode_attention
+from ..kernels.paged_decode_attention import paged_decode_attention
 from .api import BaseModel, register_family
-from .attention import attention, cache_prefill, init_kv_cache
+from .attention import (attention, cache_prefill, init_kv_cache,
+                        paged_append, paged_gather, paged_scatter_pages,
+                        suffix_attend)
 from .common import (ArchConfig, apply_rope, dense_init, dt, embed_init,
                      rmsnorm)
 
@@ -96,16 +105,29 @@ def _layer_full(x, lp, cfg: ArchConfig, positions):
     return x, (k, v)
 
 
-def _layer_decode(x, lp, ck, cv, slot, t, kv_pos, cfg: ArchConfig):
-    """Single-token layer. ck/cv: this layer's (B, C, KV, dh) ring cache,
-    written in place at ``slot``; t: () query position shared by rows;
-    kv_pos: (C,) slot positions after the write."""
+def _layer_suffix(x, lp, cfg: ArchConfig, positions, pk, pv, offset):
+    """Suffix-prefill layer: queries at absolute ``positions`` attend over
+    the gathered prefix KV (positions 0..offset-1) plus the suffix's own
+    KV. Returns (x, (k, v)) where k, v cover only the suffix slice."""
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(h, lp, cfg, positions)
+    o = suffix_attend(q, k, v, pk, pv, offset=offset,
+                      window=cfg.sliding_window, chunk=cfg.attn_chunk)
+    B, S = x.shape[:2]
+    x = x + (o.reshape(B, S, -1) @ lp["wo"]).to(x.dtype)
+    h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    x = x + _ffn(h2, lp).to(x.dtype)
+    return x, (k, v)
+
+
+def _layer_decode(x, lp, t, cfg: ArchConfig, write_attend):
+    """Single-token layer; t: () query position shared by rows.
+    ``write_attend(q (B, H, dh), k1, v1 (B, 1, KV, dh))`` writes the new
+    slot into the layer's cache in place and returns the attention
+    output (B, H, dh)."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k1, v1 = _qkv(h, lp, cfg, t.reshape(1))
-    ck.index_copy_(1, slot, k1.to(ck.dtype))
-    cv.index_copy_(1, slot, v1.to(cv.dtype))
-    o = decode_attention(q[:, 0], ck, cv, t, kv_pos,
-                         window=cfg.sliding_window)         # (B, H, dh)
+    o = write_attend(q[:, 0], k1, v1)
     B = x.shape[0]
     x = x + (o.reshape(B, 1, -1) @ lp["wo"]).to(x.dtype)
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
@@ -167,23 +189,29 @@ class DecoderLM(BaseModel):
             "t": c["t"],
         }
 
+    def _prefill_layers(self, params, batch):
+        """All layers over the full prompt: (last-position logits (B,
+        Vp), per-layer [(k, v)] each (B, S, KV, dh))."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        S = x.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        kvs = []
+        for lp in _layer_views(params):
+            x, kv = _layer_full(x, lp, cfg, positions)
+            kvs.append(kv)
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        return self._unembed(params, x[:, -1]), kvs
+
     def prefill(self, params, batch, capacity=None):
         """batch {"tokens": (B, S)} -> (last-position logits (B, Vp),
         cache {k, v: (L, B, C, KV, dh), pos (C,), t ()})."""
-        cfg = self.cfg
-        x = self._embed(params, batch)
-        B, S = x.shape[:2]
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)
-        ks, vs = [], []
-        for lp in _layer_views(params):
-            x, (k, v) = _layer_full(x, lp, cfg, positions)
-            ks.append(k)
-            vs.append(v)
-        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-        logits = self._unembed(params, x[:, -1])
+        logits, kvs = self._prefill_layers(params, batch)
+        B, S = batch["tokens"].shape
         C = capacity or self.cache_capacity(S)
-        cache = self.init_cache(B, C, device=x.device)
-        cache_prefill(cache, torch.stack(ks), torch.stack(vs))
+        cache = self.init_cache(B, C, device=logits.device)
+        cache_prefill(cache, torch.stack([k for k, _ in kvs]),
+                      torch.stack([v for _, v in kvs]))
         return logits, cache
 
     def decode(self, params, cache, batch):
@@ -196,10 +224,110 @@ class DecoderLM(BaseModel):
         slot = (t % C).reshape(1).long()
         kv_pos = cache["pos"].index_copy(0, slot, t.reshape(1))
         for i, lp in enumerate(_layer_views(params)):
-            x = _layer_decode(x, lp, cache["k"][i], cache["v"][i], slot, t,
-                              kv_pos, cfg)
+            ck, cv = cache["k"][i], cache["v"][i]
+
+            def write_attend(q, k1, v1, ck=ck, cv=cv):
+                ck.index_copy_(1, slot, k1.to(ck.dtype))
+                cv.index_copy_(1, slot, v1.to(cv.dtype))
+                return decode_attention(q, ck, cv, t, kv_pos,
+                                        window=cfg.sliding_window)
+
+            x = _layer_decode(x, lp, t, cfg, write_attend)
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
         logits = self._unembed(params, x[:, 0])
         cache["pos"] = kv_pos
         cache["t"] = t + 1
         return logits, cache
+
+    # ------------------------------------------------------------------
+    # Paged KV cache protocol. Pools are {k, v: (P1, L, page, KV, dh)}:
+    # the page index leads, so one copy-on-write moves a page for every
+    # layer, and layer i's view pool[:, i] is a (P1, page, KV, dh) tensor
+    # whose page axis is strided. Every method writes the pool in place
+    # and returns the same dict.
+    # ------------------------------------------------------------------
+    @property
+    def supports_paged_kv(self) -> bool:
+        # stub-embed (VLM) prefills prepend non-token positions, so the
+        # prompt page <-> token page correspondence breaks
+        return not self.cfg.n_stub_embeds
+
+    def init_paged_pool(self, n_pages, page, device=None):
+        """Zeroed {k, v: (n_pages + 1, L, page, KV, dh)}; the last page is
+        the trash page. Zeros, not empty: padding rows read the trash
+        page as live slots and their (discarded) outputs must be finite."""
+        cfg = self.cfg
+        shape = (n_pages + 1, cfg.n_layers, page, cfg.n_kv_heads, cfg.dh)
+        cdt = dt(cfg.compute_dtype)
+        return {"k": torch.zeros(shape, dtype=cdt, device=device),
+                "v": torch.zeros(shape, dtype=cdt, device=device)}
+
+    def paged_prefill(self, params, batch, pool, scatter_tbl, *, page,
+                      capacity):
+        """Prefill + page scatter. scatter_tbl: (B, S // page) physical
+        destination pages (trash for rows whose compute is discarded).
+        Returns (logits, pool, pos (capacity,), t ())."""
+        logits, kvs = self._prefill_layers(params, batch)
+        for i, (k, v) in enumerate(kvs):
+            paged_scatter_pages(pool["k"][:, i], pool["v"][:, i],
+                                scatter_tbl, k, v)
+        S = batch["tokens"].shape[1]
+        dev = logits.device
+        ar = torch.arange(capacity, dtype=torch.int32, device=dev)
+        pos = torch.where(ar < S, ar, torch.full_like(ar, -1))
+        return logits, pool, pos, torch.full((), S, dtype=torch.int32,
+                                             device=dev)
+
+    def paged_prefill_suffix(self, params, batch, pool, prefix_tbl,
+                             scatter_tbl, *, offset, page):
+        """Compute-shared suffix prefill: attend over the cached prefix KV
+        (gathered through ``prefix_tbl``, (B, offset // page)) and compute
+        only the suffix tokens at absolute positions offset..offset+Ssuf-1,
+        then scatter the suffix KV into pool pages via ``scatter_tbl``
+        (B, Ssuf // page). Returns (logits, pool); the logits are the last
+        suffix position's, as a monolithic prefill would give them."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        Ssuf = x.shape[1]
+        positions = torch.arange(offset, offset + Ssuf, dtype=torch.int32,
+                                 device=x.device)
+        kvs = []
+        for i, lp in enumerate(_layer_views(params)):
+            # the suffix's own pages are written after every layer ran,
+            # so each layer reads the prefix as the call found it
+            pk, pv = paged_gather(pool["k"][:, i], pool["v"][:, i],
+                                  prefix_tbl)
+            x, kv = _layer_suffix(x, lp, cfg, positions, pk, pv, offset)
+            kvs.append(kv)
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        logits = self._unembed(params, x[:, -1])
+        for i, (k, v) in enumerate(kvs):
+            paged_scatter_pages(pool["k"][:, i], pool["v"][:, i],
+                                scatter_tbl, k, v)
+        return logits, pool
+
+    def paged_decode(self, params, pool, table, pos, t, batch, *, page):
+        """One decode step through the page table, without a gather: each
+        layer writes its new K/V slot in place at (table column, in-page
+        offset) and launches ``paged_decode_attention`` on its view of the
+        pool. table: (B, n_lp) int32; pos (C,); t (). Returns (logits,
+        pool, pos', t')."""
+        cfg = self.cfg
+        x = self._embed(params, {"tokens": batch["token"]})
+        C = table.shape[1] * page
+        slot = (t % C).reshape(1).long()
+        kv_pos = pos.index_copy(0, slot, t.reshape(1))
+        tbl_col = table.index_select(1, slot // page)[:, 0]
+        off = slot[0] % page
+        for i, lp in enumerate(_layer_views(params)):
+            kp, vp = pool["k"][:, i], pool["v"][:, i]
+
+            def write_attend(q, k1, v1, kp=kp, vp=vp):
+                paged_append(kp, vp, tbl_col, off, k1, v1)
+                return paged_decode_attention(q, kp, vp, table, t, kv_pos,
+                                              window=cfg.sliding_window)
+
+            x = _layer_decode(x, lp, t, cfg, write_attend)
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        logits = self._unembed(params, x[:, 0])
+        return logits, pool, kv_pos, t + 1

@@ -1,12 +1,15 @@
-"""Serving subsystem: router -> scheduler -> expert engines (ring KV
-layout, one engine per expert).
+"""Serving subsystem: router -> scheduler -> expert engines (ring or
+paged KV layout, one engine per expert).
 
   * ``Router`` — ExpertMatcher scoring through the routing kernels, with
     bounded row buckets and a client-fingerprint LRU.
   * ``Scheduler`` — per-expert admission queues with length-bucketed
     continuous micro-batching.
   * ``EngineCore`` / ``ExpertEngine`` — resident waves, device-side token
-    state, one batched harvest copy per wave.
+    state, one batched harvest copy per wave; ``kv_layout="paged"`` adds
+    the page pool with prefix sharing, copy-on-write and chunked prefill.
+  * ``PagePool`` / ``PrefixCache`` — the paged layout's host-side
+    allocator and shared-prefix index (``kvcache``).
   * ``DispatchExecutor`` (``serial`` / ``overlapped``) — whether a step
     blocks per decode tick or enqueues all shards' work first.
 """
@@ -14,14 +17,16 @@ from .core import (DispatchExecutor, EngineCore, EngineStats,
                    OverlappedExecutor, SerialExecutor, bucket_for,
                    get_executor, make_buckets)
 from .engine import ExpertEngine
+from .kvcache import PagePool, PagePoolExhausted, PrefixCache, hash_chain
 from .router import PrefixLRU, Router, RouteResult
 from .scheduler import (Request, Response, RoutedServer, Scheduler,
                         SchedulerConfig, SchedulerStats, Shard)
 
 __all__ = [
     "DispatchExecutor", "EngineCore", "EngineStats", "ExpertEngine",
-    "OverlappedExecutor", "PrefixLRU", "Request", "Response",
+    "OverlappedExecutor", "PagePool", "PagePoolExhausted", "PrefixCache",
+    "PrefixLRU", "Request", "Response",
     "RouteResult", "RoutedServer", "Router", "Scheduler",
     "SchedulerConfig", "SchedulerStats", "SerialExecutor", "Shard",
-    "bucket_for", "get_executor", "make_buckets",
+    "bucket_for", "get_executor", "hash_chain", "make_buckets",
 ]

@@ -1,9 +1,20 @@
 """EngineCore: the residency / bucketing / harvest machinery behind every
-expert engine, plus the dispatch executors (ring KV layout).
+expert engine, plus the dispatch executors.
 
   * ``EngineCore`` serves E >= 1 experts (``E = 1`` behind
     ``ExpertEngine``); wave arrays keep a leading ``E`` axis, as in the
     reference. Admissions snap to (batch bucket, length bucket) shapes.
+  * two KV layouts: ``ring`` gives each wave a dense cache; ``paged``
+    keeps one page pool per engine ``(E, P1, L, page, KV, dh)`` that
+    waves address through per-row page tables, with prefix sharing
+    (in-wave dedup and a cross-wave prefix cache), copy-on-write before
+    decode wraps into shared prompt pages, ``PagePoolExhausted``
+    backpressure, and chunked prefill of long prompts (``chunk_len``).
+    The pool is written in place on one CUDA stream — prefill scatters,
+    decode appends and COW copies in issue order — and a wave's pages
+    return to the allocator only in ``harvest``, after its last token
+    plane reached the host, so no kernel in flight can read a page that
+    a new wave was handed.
   * a tick **enqueues** device work and keeps the sampled token on the
     device: ``wave.tok`` stays a tensor and emitted columns accumulate as
     device tensors. Nothing blocks until ``harvest()``, which copies all
@@ -31,6 +42,7 @@ import torch
 
 from ..device import resolve_device
 from ..obs.trace import NULL_TRACER
+from .kvcache import PagePool, PagePoolExhausted, PrefixCache, hash_chain
 
 
 # ---------------------------------------------------------------------------
@@ -71,10 +83,15 @@ class EngineStats:
     """Serving counters for one ``EngineCore``.
 
     PyTorch runs eagerly and compiles nothing per shape, so
-    ``prefill_compiles`` / ``decode_compiles`` count the distinct shape
-    keys the engine has run — ``(Bb, Sb)`` for prefill, ``Bb`` for decode
-    — the quantity the reference's executable counts bound. ``host_blocks``
-    counts host-blocking device-to-host copies.
+    ``prefill_compiles`` / ``suffix_compiles`` / ``decode_compiles`` count
+    the distinct shape keys the engine has run — ``(Bb, Sb)`` for
+    prefill, ``(Bb, chunk index)`` for suffix prefill, ``Bb`` for decode
+    — the quantity the reference's executable counts bound.
+    ``host_blocks`` counts host-blocking device-to-host copies. Prefill
+    accounting: ``prefill_tokens_submitted`` counts every prompt token
+    clients sent, ``prefill_tokens_computed`` the tokens that went
+    through a prefill dispatch (deduplicated and fully cached rows add
+    none).
     """
 
     def __init__(self, core: Optional["EngineCore"] = None):
@@ -88,10 +105,18 @@ class EngineStats:
         self.prefill_tokens_submitted = 0
         self.prefill_tokens_computed = 0
         self.prefill_rows_computed = 0
+        self.prefix_full_hits = 0       # rows skipped via cross-wave cache
+        self.prefix_dup_rows = 0        # rows deduplicated inside a wave
+        self.prefix_pages_shared = 0    # page refs shared instead of built
+        self.pages_copied = 0           # copy-on-write page copies
 
     @property
     def prefill_compiles(self) -> int:
         return len(self._core._prefill_shapes) if self._core else 0
+
+    @property
+    def suffix_compiles(self) -> int:
+        return len(self._core._suffix_shapes) if self._core else 0
 
     @property
     def decode_compiles(self) -> int:
@@ -99,7 +124,8 @@ class EngineStats:
 
     @property
     def jit_cache_entries(self) -> int:
-        return self.prefill_compiles + self.decode_compiles
+        return (self.prefill_compiles + self.suffix_compiles
+                + self.decode_compiles)
 
     def as_dict(self) -> Dict[str, Any]:
         return {
@@ -112,7 +138,12 @@ class EngineStats:
             "prefill_tokens_submitted": self.prefill_tokens_submitted,
             "prefill_tokens_computed": self.prefill_tokens_computed,
             "prefill_rows_computed": self.prefill_rows_computed,
+            "prefix_full_hits": self.prefix_full_hits,
+            "prefix_dup_rows": self.prefix_dup_rows,
+            "prefix_pages_shared": self.prefix_pages_shared,
+            "pages_copied": self.pages_copied,
             "prefill_compiles": self.prefill_compiles,
+            "suffix_compiles": self.suffix_compiles,
             "decode_compiles": self.decode_compiles,
             "jit_cache_entries": self.jit_cache_entries,
         }
@@ -125,7 +156,11 @@ class EngineStats:
                 f"rows_served={self.rows_served}, "
                 f"rows_padded={self.rows_padded}, "
                 f"tokens_generated={self.tokens_generated}, "
-                f"host_blocks={self.host_blocks})")
+                f"host_blocks={self.host_blocks}, "
+                f"prefill_tokens={self.prefill_tokens_computed}/"
+                f"{self.prefill_tokens_submitted}, "
+                f"prefix_hits={self.prefix_full_hits}+"
+                f"{self.prefix_dup_rows}dup)")
 
 
 # ---------------------------------------------------------------------------
@@ -140,16 +175,40 @@ class _Wave:
     ``emitted`` holds one (E, Bb) token plane per generated step; planes
     start life as device tensors and are swapped for host arrays by
     ``_materialize`` — ``n_host`` is the already-materialised prefix.
+
+    Ring waves own a dense ``cache``; paged waves instead carry a page
+    ``table`` into the core's shared pool plus the wave's ``pos``/``t``
+    (lockstep rows share positions, only physical storage is per row),
+    the pages each row releases at retirement, and the prefix chains to
+    register in the cross-wave cache.
     """
     uids: Dict[int, List[Any]]          # local expert -> row uids
     per_row_new: Dict[int, List[int]]
     done: Dict[int, List[bool]]
-    cache: Any                          # {k, v (E, L, Bb, C, KV, dh),
-    #                                      pos (E, C), t (E,)}
-    tok: torch.Tensor                   # (E, Bb, 1) last sampled token
+    cache: Any                          # ring: {k, v (E, L, Bb, C, KV,
+    #                                      dh), pos (E, C), t (E,)}
+    tok: Optional[torch.Tensor]         # (E, Bb, 1) last sampled token;
+    #   None while prefill chunks are still pending (decode is gated)
     emitted: List[Any]                  # (E, Bb) planes, device or host
     steps_left: int
     n_host: int = 0                     # emitted[:n_host] are host arrays
+    # paged-layout fields (None / empty on ring waves)
+    table: Optional[torch.Tensor] = None     # (E, Bb, n_logical) int32
+    pos: Optional[torch.Tensor] = None       # (E, C) slot positions
+    t: Optional[torch.Tensor] = None         # (E,) next write position
+    pages_held: Dict[int, List[List[int]]] = \
+        dataclasses.field(default_factory=dict)
+    register: List[Tuple[int, int, int, List[bytes], List[int]]] = \
+        dataclasses.field(default_factory=list)
+    #   ^ (local, row, padded_len, chain, pages) to insert at retirement
+    # chunked-prefill fields (empty / None on unchunked waves): each
+    # pending descriptor is one not-yet-dispatched prefill chunk,
+    # dispatched FIFO; the wave's first token (and decode eligibility)
+    # materialises only when the last chunk lands (_finalize_wave)
+    pending_chunks: List[Dict[str, Any]] = \
+        dataclasses.field(default_factory=list)
+    finalize: Optional[Dict[str, Any]] = None
+    _tok_c: Optional[torch.Tensor] = None    # last chunk's packed argmax
     # tracing (inert under NULL_TRACER): device spans begun at enqueue,
     # ended only inside _materialize, so tracing never adds a host block
     wave_id: int = 0
@@ -176,19 +235,15 @@ class EngineCore:
     def __init__(self, model, params_list: Sequence[Any], *,
                  max_len: int = 256, min_len_bucket: int = 8,
                  batch_buckets: Optional[Sequence[int]] = None,
-                 kv_layout: str = "ring", chunk_len: Optional[int] = None,
+                 kv_layout: str = "ring", page_size: int = 8,
+                 pool_pages: Optional[int] = None,
+                 chunk_len: Optional[int] = None,
                  speculate_k: int = 0, mesh=None, device=None):
         if not params_list:
             raise ValueError("EngineCore needs at least one expert")
-        if kv_layout == "paged":
-            raise NotImplementedError(
-                "kv_layout='paged' arrives with port slice A6")
-        if kv_layout != "ring":
+        if kv_layout not in ("ring", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; expected "
                              "'ring' or 'paged'")
-        if chunk_len is not None:
-            raise NotImplementedError(
-                "chunked prefill arrives with port slice A7")
         if speculate_k:
             raise NotImplementedError(
                 "speculative decoding arrives with port slice A8")
@@ -213,13 +268,91 @@ class EngineCore:
         self._active: List[_Wave] = []
         self._finished: List[Tuple[int, Any, np.ndarray]] = []
         self._prefill_shapes: set = set()    # (Bb, Sb) run so far
+        self._suffix_shapes: set = set()     # (Bb, chunk index k >= 1)
         self._decode_shapes: set = set()     # Bb run so far
+        # -- paged KV state (None in ring layout) ------------------------
+        self.pool: Optional[PagePool] = None
+        self.prefix_cache: Optional[PrefixCache] = None
+        self.kv_pool = None                  # {k, v}: (E, P1, L, page, ...)
+        if kv_layout == "paged":
+            if not model.supports_paged_kv:
+                raise ValueError(
+                    f"model family {model.cfg.family!r} does not "
+                    "implement the paged KV cache protocol; use "
+                    "kv_layout='ring'")
+            self.page = int(page_size)
+            bad = [b for b in (*self.len_buckets, self.max_len)
+                   if b % self.page]
+            if bad:
+                raise ValueError(
+                    f"paged layout needs every length bucket to be a "
+                    f"multiple of page_size={self.page}; offending "
+                    f"buckets {bad} (prefills must fill whole pages so "
+                    "prefix-shared pages are never partially written)")
+            self.n_logical = self.max_len // self.page
+            per_expert = int(pool_pages) if pool_pages else \
+                3 * self.batch_buckets[-1] * self.n_logical
+            self.pool = PagePool(self.n_experts, per_expert, self.page)
+            self.prefix_cache = PrefixCache(self.pool, capacity=1024)
+            # one zeroed pool per expert, stacked: trash-page reads by
+            # padding rows must stay finite
+            pools = [model.init_paged_pool(per_expert, self.page,
+                                           device=self.device)
+                     for _ in range(self.n_experts)]
+            self.kv_pool = {k: _stack([p[k] for p in pools])
+                            for k in ("k", "v")}
+        # -- chunked prefill geometry (paged only) -----------------------
+        self.chunk_len: Optional[int] = None
+        if chunk_len is not None:
+            cl = int(chunk_len)
+            if kv_layout != "paged":
+                raise ValueError("chunk_len requires kv_layout='paged' "
+                                 "(suffix prefill attends over pool pages)")
+            if cl % self.page:
+                raise ValueError(
+                    f"chunk_len={cl} must be a multiple of "
+                    f"page_size={self.page}")
+            if self.max_len % cl:
+                raise ValueError(
+                    f"max_len={self.max_len} must be a multiple of "
+                    f"chunk_len={cl} (the suffix ladder tiles max_len)")
+            if cl not in self.len_buckets:
+                raise ValueError(
+                    f"chunk_len={cl} must itself be a length bucket "
+                    f"(got buckets {self.len_buckets}) — chunk 0 reuses "
+                    "the monolithic prefill at that bucket")
+            bad = [b for b in self.len_buckets if b > cl and b % cl]
+            if bad:
+                raise ValueError(
+                    f"length buckets above chunk_len must be multiples "
+                    f"of chunk_len={cl}; offending buckets {bad} (every "
+                    "padded prompt must split into whole chunks)")
+            self.chunk_len = cl
 
     def bind_tracer(self, tracer) -> None:
         """Install a lifecycle tracer (None restores NULL_TRACER)."""
         self.tracer = tracer if tracer is not None else NULL_TRACER
 
+    def executable_bounds(self) -> Dict[str, int]:
+        """Steady-state bound on the distinct shape keys per family (the
+        reference's executable-count bound). With chunking, monolithic
+        prefill shapes exist only for length buckets <= chunk_len, and
+        the suffix ladder adds one per (batch bucket, chunk index >= 1)."""
+        nB = len(self.batch_buckets)
+        if self.chunk_len:
+            prefill = nB * sum(1 for b in self.len_buckets
+                               if b <= self.chunk_len)
+            suffix = nB * (max(self.len_buckets) // self.chunk_len - 1)
+        else:
+            prefill = nB * len(self.len_buckets)
+            suffix = 0
+        return {"prefill": prefill, "suffix": suffix, "decode": nB}
+
     # -- device work -----------------------------------------------------
+    def _expert_pool(self, e: int) -> Dict[str, torch.Tensor]:
+        """Expert ``e``'s (P1, L, page, KV, dh) pool views."""
+        return {"k": self.kv_pool["k"][e], "v": self.kv_pool["v"][e]}
+
     def _prefill(self, toks: np.ndarray):
         """(E, Bb, Sb) tokens -> (logits (E, Bb, V), wave cache)."""
         self._prefill_shapes.add(toks.shape[1:])
@@ -235,8 +368,43 @@ class EngineCore:
                  for k in ("k", "v", "pos", "t")}
         return _stack(logits), cache
 
+    def _paged_prefill(self, toks: np.ndarray, stbl: np.ndarray
+                       ) -> torch.Tensor:
+        """(E, Bb, Sb) tokens, (E, Bb, Sb // page) scatter table ->
+        logits (E, Bb, V); the pages land in the pool in place."""
+        self._prefill_shapes.add(toks.shape[1:])
+        tok_dev = torch.from_numpy(toks).to(self.device)
+        stbl_dev = torch.from_numpy(stbl).to(self.device)
+        logits = []
+        for e in range(self.n_experts):
+            lg, _, _, _ = self.model.paged_prefill(
+                self.params[e], {"tokens": tok_dev[e]}, self._expert_pool(e),
+                stbl_dev[e], page=self.page, capacity=self.max_len)
+            logits.append(lg)
+        return _stack(logits)
+
+    def _paged_suffix(self, k: int, toks: np.ndarray, ptbl: np.ndarray,
+                      stbl: np.ndarray) -> torch.Tensor:
+        """Suffix prefill of chunk ``k >= 1``: exactly ``chunk_len``
+        tokens at offset ``k * chunk_len``, attending over the prefix
+        pages already in the pool. Shape key (Bb, k), so the ladder is
+        bounded by ``(max(len_buckets) // chunk_len - 1) *
+        len(batch_buckets)``."""
+        self._suffix_shapes.add((toks.shape[1], k))
+        tok_dev = torch.from_numpy(toks).to(self.device)
+        ptbl_dev = torch.from_numpy(ptbl).to(self.device)
+        stbl_dev = torch.from_numpy(stbl).to(self.device)
+        logits = []
+        for e in range(self.n_experts):
+            lg, _ = self.model.paged_prefill_suffix(
+                self.params[e], {"tokens": tok_dev[e]}, self._expert_pool(e),
+                ptbl_dev[e], stbl_dev[e], offset=k * self.chunk_len,
+                page=self.page)
+            logits.append(lg)
+        return _stack(logits)
+
     def _decode(self, cache, tok: torch.Tensor) -> torch.Tensor:
-        """One decode step of a wave; the cache is updated in place.
+        """One decode step of a ring wave; the cache is updated in place.
         Returns logits (E, Bb, V)."""
         self._decode_shapes.add(tok.shape[1])
         logits, pos, ts = [], [], []
@@ -251,6 +419,40 @@ class EngineCore:
         cache["pos"] = _stack(pos)
         cache["t"] = _stack(ts)
         return _stack(logits)
+
+    def _paged_decode(self, w: "_Wave") -> torch.Tensor:
+        """One decode step of a paged wave through its page table; the
+        pool is written in place, ``w.pos``/``w.t`` advance. Returns
+        logits (E, Bb, V)."""
+        self._decode_shapes.add(w.tok.shape[1])
+        logits, pos, ts = [], [], []
+        for e in range(self.n_experts):
+            lg, _, p, t = self.model.paged_decode(
+                self.params[e], self._expert_pool(e), w.table[e], w.pos[e],
+                w.t[e], {"token": w.tok[e]}, page=self.page)
+            logits.append(lg)
+            pos.append(p)
+            ts.append(t)
+        w.pos = _stack(pos)
+        w.t = _stack(ts)
+        return _stack(logits)
+
+    def _copy_pages(self, copies: Mapping[int, Sequence[Tuple[int, int]]]
+                    ) -> None:
+        """Apply copy-on-write page copies: one indexed copy per pool
+        over every expert's (src, dst) pairs, in place (the reference
+        pads the copy count to a power of two to bound its compiles; the
+        port compiles nothing per shape, so it copies exactly what it
+        must). Each copy moves a page for every layer."""
+        triples = [(local, s_, d) for local, pairs in copies.items()
+                   for s_, d in pairs]
+        if not triples:
+            return
+        es, srcs, dsts = (torch.as_tensor(col, dtype=torch.long,
+                                          device=self.device)
+                          for col in zip(*triples))
+        for buf in self.kv_pool.values():
+            buf[es, dsts] = buf[es, srcs]
 
     @staticmethod
     def _sample(logits: torch.Tensor) -> torch.Tensor:
@@ -314,14 +516,21 @@ class EngineCore:
             per_row[local] = [max(1, int(m)) for m in max_new]
             done[local] = [False] * len(u)
             n_rows += len(u)
-        logits, cache = self._prefill(toks)
-        self.stats.prefill_calls += 1
-        self.stats.prefill_rows_computed += n_rows
-        self.stats.prefill_tokens_computed += n_rows * Sb
-        tok = self._sample(logits)
-        steps = max(m for ms in per_row.values() for m in ms) - 1
-        w = _Wave(uids=uids, per_row_new=per_row, done=done, cache=cache,
-                  tok=tok, emitted=[tok[..., 0]], steps_left=steps)
+        if self.kv_layout == "paged":
+            # may raise PagePoolExhausted with nothing changed — the
+            # scheduler requeues the rows as backpressure; the device span
+            # below opens only after admission succeeds
+            w = self._admit_paged(toks, uids, per_row, done, Bb, Sb)
+        else:
+            logits, cache = self._prefill(toks)
+            self.stats.prefill_calls += 1
+            self.stats.prefill_rows_computed += n_rows
+            self.stats.prefill_tokens_computed += n_rows * Sb
+            tok = self._sample(logits)
+            steps = max(m for ms in per_row.values() for m in ms) - 1
+            w = _Wave(uids=uids, per_row_new=per_row, done=done,
+                      cache=cache, tok=tok, emitted=[tok[..., 0]],
+                      steps_left=steps)
         self.stats.rows_served += n_rows
         self.stats.rows_padded += E * Bb - n_rows
         self.stats.prefill_tokens_submitted += n_submitted
@@ -330,13 +539,369 @@ class EngineCore:
             flat = [u for us in uids.values() for u in us]
             w.sp_prefill = self.tracer.begin_device(
                 "wave.prefill", wave=w.wave_id, Bb=Bb, Sb=Sb,
-                rows=n_rows, spec=False, chunks=0, uids=flat,
-                traces=[self.tracer.trace_of(u) for u in flat])
+                rows=n_rows, spec=False, chunks=len(w.pending_chunks),
+                uids=flat, traces=[self.tracer.trace_of(u) for u in flat])
         self._active.append(w)
         if not defer:
+            # blocking reference: drain the wave's prefill chunks (none on
+            # unchunked waves) before materialising the first token
+            while w.pending_chunks:
+                self._dispatch_chunk(w)
             self._materialize(w, 1)
             self.harvest()
         return True
+
+    # -- paged admission -------------------------------------------------
+    def _alloc_pages(self, local: int, n: int,
+                     ledger: List[Tuple[int, List[int]]]) -> List[int]:
+        """Pool allocation with prefix-cache eviction as the fallback;
+        every page taken is recorded in ``ledger`` for rollback."""
+        try:
+            pages = self.pool.alloc(local, n)
+        except PagePoolExhausted:
+            self.prefix_cache.evict_for(local, n)
+            pages = self.pool.alloc(local, n)
+        ledger.append((local, pages))
+        return pages
+
+    def _admit_paged(self, toks: np.ndarray, uids, per_row, done,
+                     Bb: int, Sb: int) -> _Wave:
+        """Plan page tables for one wave, sharing prefixes, then prefill
+        only the rows no cached or duplicated prefix covers.
+
+        Host phase (transactional): every row is
+
+          * ``cached`` — its full padded prompt's pages are in the
+            cross-wave prefix cache and the greedy first token is known:
+            the row adopts the pages (refcount++) and skips prefill;
+          * ``dup`` — an earlier row of this wave carries the identical
+            padded prompt: share its pages, take its first token;
+          * ``computed`` — adopt whatever cached prefix exists (with
+            chunking, snapped down to a chunk boundary and its chunks
+            skipped; without, scattered to trash: storage shared, compute
+            not), allocate fresh pages for the rest, and join the packed
+            prefill batch.
+
+        Rows that wrap (Sb + steps > capacity) overwrite prompt pages
+        during decode, so shared pages in the write range are
+        copy-on-write remapped to fresh copies before the first tick. If
+        the pool cannot cover the wave even after evicting cache entries,
+        every reference taken is rolled back and ``PagePoolExhausted``
+        propagates with the pool untouched.
+
+        Device phase: computed rows are packed into an (E, Bbc, Sb)
+        prefill — or planned as chunk descriptors when the prompt is
+        longer than ``chunk_len`` — followed by the COW page copies and
+        the first-token plane (gathered from the packed logits, cached
+        rows overlaid), all enqueued without a host block.
+        """
+        E, page, nlp, C = self.n_experts, self.page, self.n_logical, \
+            self.max_len
+        npp = Sb // page
+        trash = self.pool.trash
+        steps = max(m for ms in per_row.values() for m in ms) - 1
+        # chunked geometry: prompts longer than chunk_len split into
+        # chunk dispatches; partial-prefix adoption snaps down to a chunk
+        # boundary and is capped at npp - ppc, so the last chunk always
+        # computes (its logits carry every computed row's first token)
+        chunked = self.chunk_len is not None and Sb > self.chunk_len
+        ppc = (self.chunk_len // page) if chunked else npp
+        start_chunk: Dict[Tuple[int, int], int] = {}
+        wr_pages = sorted({(s % C) // page for s in range(Sb, Sb + steps)})
+        wr_prompt = [lp for lp in wr_pages if lp < npp]
+        wr_decode = [lp for lp in wr_pages if lp >= npp]
+        register_ok = not wr_prompt      # decode never clobbers a prefix
+
+        table = np.full((E, Bb, nlp), trash, np.int32)
+        ledger: List[Tuple[int, List[int]]] = []      # refs for rollback
+        to_release: List[Tuple[int, List[int]]] = []  # COW'd-out pages
+        copies: Dict[int, List[Tuple[int, int]]] = {}  # local -> (src, dst)
+        scatter: Dict[Tuple[int, int], List[int]] = {}  # computed rows
+        cached_tok: Dict[Tuple[int, int], int] = {}
+        dup_src: Dict[Tuple[int, int], int] = {}      # row -> computed row
+        register: List[Tuple[int, int, int, List[bytes], List[int]]] = []
+        n_cached = n_dup = n_shared = 0
+        try:
+            for local, row_uids in uids.items():
+                seen: Dict[bytes, int] = {}       # full-prompt key -> row
+                for i in range(len(row_uids)):
+                    chain = hash_chain(toks[local, i], page)
+                    key = chain[-1]
+                    prow: List[int]
+                    if key in seen:
+                        # only computed rows enter ``seen``, so a dup's
+                        # first token comes from its representative's
+                        # packed logits
+                        rep = seen[key]
+                        prow = list(table[local, rep, :npp])
+                        self.pool.retain(local, prow)
+                        # a ledger entry owns its page list: the COW remap
+                        # below mutates prow in place
+                        ledger.append((local, list(prow)))
+                        dup_src[(local, i)] = rep
+                        n_dup += 1
+                        n_shared += npp
+                    else:
+                        adopted = self.prefix_cache.adopt_prefix(local,
+                                                                 chain)
+                        if adopted:
+                            ledger.append((local, list(adopted)))
+                        ftok = None
+                        if len(adopted) == npp:
+                            ftok = self.prefix_cache.first_token(
+                                local, Sb, chain)
+                        if ftok is not None:
+                            prow = list(adopted)
+                            cached_tok[(local, i)] = ftok
+                            n_cached += 1
+                            n_shared += npp
+                        else:
+                            if wr_prompt and adopted:
+                                # a wrapping row must own its wrapped
+                                # prompt pages: drop the adoption and
+                                # compute everything into fresh pages
+                                self.pool.release(local, adopted)
+                                ledger.pop()
+                                adopted = []
+                            d = len(adopted)
+                            if chunked and d:
+                                # snap adoption to the chunk grid: kept
+                                # pages' chunks are skipped, not re-run
+                                keep = min((d // ppc) * ppc, npp - ppc)
+                                if keep < d:
+                                    self.pool.release(local,
+                                                      adopted[keep:])
+                                    if keep:
+                                        ledger[-1] = (local,
+                                                      list(adopted[:keep]))
+                                    else:
+                                        ledger.pop()
+                                    adopted = adopted[:keep]
+                                    d = keep
+                            fresh = self._alloc_pages(local, npp - d,
+                                                      ledger)
+                            prow = list(adopted) + fresh
+                            scatter[(local, i)] = [trash] * d + fresh
+                            if chunked:
+                                start_chunk[(local, i)] = d // ppc
+                            n_shared += d
+                            if register_ok:
+                                register.append((local, i, Sb, chain,
+                                                 list(prow)))
+                            seen[key] = i
+                    # copy-on-write: shared pages decode will overwrite
+                    for lp in wr_prompt:
+                        if self.pool.shared(local, prow[lp]):
+                            new = self._alloc_pages(local, 1, ledger)[0]
+                            copies.setdefault(local, []).append(
+                                (prow[lp], new))
+                            to_release.append((local, [prow[lp]]))
+                            prow[lp] = new
+                    decode_pages = self._alloc_pages(
+                        local, len(wr_decode), ledger)
+                    table[local, i, :npp] = prow
+                    for lp, pg in zip(wr_decode, decode_pages):
+                        table[local, i, lp] = pg
+        except PagePoolExhausted:
+            for local, pages in ledger:
+                self.pool.release(local, pages)
+            raise
+        # commit: COW'd-out shared pages lose this wave's reference (the
+        # rollback above must not see them as released, hence deferred)
+        for local, pages in to_release:
+            self.pool.release(local, pages)
+        pages_held = {
+            local: [[int(p) for p in table[local, i] if p != trash]
+                    for i in range(len(row_uids))]
+            for local, row_uids in uids.items()}
+
+        # device phase: packed prefill over computed rows only
+        computed = sorted(scatter)                 # [(local, i), ...]
+        per_local: Dict[int, List[int]] = {}
+        for local, i in computed:
+            per_local.setdefault(local, []).append(i)
+        n_computed = len(computed)
+        use_chunks = chunked and n_computed > 0
+        mask = vals = None
+        if cached_tok:
+            mask = np.zeros((E, Bb), bool)
+            vals = np.zeros((E, Bb), np.int32)
+            for (local, i), ft in cached_tok.items():
+                mask[local, i] = True
+                vals[local, i] = ft
+        pending: List[Dict[str, Any]] = []
+        fin: Optional[Dict[str, Any]] = None
+        if use_chunks:
+            # plan (don't dispatch) one descriptor per chunk: chunk k
+            # packs every computed row whose adopted prefix doesn't cover
+            # it; chunk 0 is a plain paged prefill at the chunk_len
+            # bucket, chunks >= 1 are suffix prefills. _dispatch_chunk
+            # issues them — at once (blocking admit) or interleaved with
+            # decode ticks under the executor's token budget (deferred).
+            cl = self.chunk_len
+            for k in range(Sb // cl):
+                rows_k = [(l, i) for (l, i) in computed
+                          if start_chunk[(l, i)] <= k]
+                if not rows_k:
+                    continue
+                pl_k: Dict[int, List[int]] = {}
+                for l, i in rows_k:
+                    pl_k.setdefault(l, []).append(i)
+                Bbk = bucket_for(max(len(v) for v in pl_k.values()),
+                                 self.batch_buckets)
+                toks_k = np.zeros((E, Bbk, cl), np.int32)
+                stbl_k = np.full((E, Bbk, ppc), trash, np.int32)
+                # padding rows read the trash page through their prefix
+                # table — finite garbage, outputs discarded
+                ptbl_k = np.full((E, Bbk, k * ppc), trash, np.int32)
+                slot_of_k: Dict[Tuple[int, int], int] = {}
+                for l, rows in pl_k.items():
+                    for c, i in enumerate(rows):
+                        toks_k[l, c] = toks[l, i, k * cl:(k + 1) * cl]
+                        stbl_k[l, c] = \
+                            scatter[(l, i)][k * ppc:(k + 1) * ppc]
+                        if k:
+                            ptbl_k[l, c] = table[l, i, :k * ppc]
+                        slot_of_k[(l, i)] = c
+                pending.append({"k": k, "toks": toks_k, "stbl": stbl_k,
+                                "ptbl": ptbl_k, "rows": len(rows_k),
+                                "slot_of": slot_of_k})
+            # every computed row rides the last chunk, so its packed
+            # logits carry every first token; dups resolve through their
+            # representative
+            last = pending[-1]["slot_of"]
+            src = np.zeros((E, Bb), np.int32)
+            for local, row_uids in uids.items():
+                for i in range(len(row_uids)):
+                    src[local, i] = last.get(
+                        (local, i),
+                        last.get((local, dup_src.get((local, i), -1)), 0))
+            fin = {"src": src, "mask": mask, "vals": vals,
+                   "copies": copies}
+        else:
+            logits = src = None
+            if n_computed:
+                Bbc = bucket_for(max(len(v) for v in per_local.values()),
+                                 self.batch_buckets)
+                toks_c = np.zeros((E, Bbc, Sb), np.int32)
+                stbl = np.full((E, Bbc, npp), trash, np.int32)
+                slot_of: Dict[Tuple[int, int], int] = {}
+                for local, rows in per_local.items():
+                    for c, i in enumerate(rows):
+                        toks_c[local, c] = toks[local, i]
+                        stbl[local, c] = scatter[(local, i)]
+                        slot_of[(local, i)] = c
+                logits = self._paged_prefill(toks_c, stbl)
+                self.stats.prefill_calls += 1
+                src = np.zeros((E, Bb), np.int32)
+                for local, row_uids in uids.items():
+                    for i in range(len(row_uids)):
+                        src[local, i] = slot_of.get(
+                            (local, i),
+                            slot_of.get((local,
+                                         dup_src.get((local, i), -1)), 0))
+            tok = self._first_tokens(logits, src, mask, vals)
+            # COW copies read post-prefill pages (a dup's source may have
+            # been written by this very wave's scatter)
+            self._copy_pages(copies)
+            self.stats.pages_copied += sum(len(p) for p in copies.values())
+            self.stats.prefill_tokens_computed += n_computed * Sb
+
+        self.stats.prefill_rows_computed += n_computed
+        self.stats.prefix_full_hits += n_cached
+        self.stats.prefix_dup_rows += n_dup
+        self.stats.prefix_pages_shared += n_shared
+        pos = np.where(np.arange(C) < Sb, np.arange(C), -1).astype(np.int32)
+        table_dev = torch.from_numpy(table).to(self.device)
+        pos_dev = torch.from_numpy(
+            np.broadcast_to(pos, (E, C)).copy()).to(self.device)
+        t_dev = torch.full((E,), Sb, dtype=torch.int32, device=self.device)
+        w = _Wave(uids=uids, per_row_new=per_row, done=done, cache=None,
+                  tok=None, emitted=[], steps_left=steps, table=table_dev,
+                  pos=pos_dev, t=t_dev, pages_held=pages_held,
+                  register=register)
+        if use_chunks:
+            w.pending_chunks, w.finalize = pending, fin
+        else:
+            w.tok = tok[..., None]
+            w.emitted.append(tok)
+        return w
+
+    def _first_tokens(self, logits, src, mask, vals) -> torch.Tensor:
+        """The wave's (E, Bb) int32 first-token plane, on the device:
+        the greedy token of packed row ``src[e, i]`` of ``logits`` (E,
+        Bbc, V), with cached rows (``mask``) overlaid by their known
+        token ``vals``. Either half may be absent (``None``)."""
+        tok = None
+        if logits is not None:
+            tok_c = torch.argmax(logits, dim=-1).to(torch.int32)
+            tok = torch.gather(tok_c, 1,
+                               torch.from_numpy(src).long().to(self.device))
+        if mask is not None:
+            v = torch.from_numpy(vals).to(self.device)
+            tok = v if tok is None else torch.where(
+                torch.from_numpy(mask).to(self.device), v, tok)
+        if tok is None:
+            raise AssertionError("wave with rows but no token source")
+        return tok
+
+    # -- chunked prefill dispatch ----------------------------------------
+    def _dispatch_chunk(self, w: _Wave) -> int:
+        """Issue the wave's next pending prefill chunk (FIFO). Chunk 0 is
+        a plain paged prefill at the chunk_len bucket; later chunks attend
+        over the pages earlier chunks (or an adopted prefix) wrote. When
+        the last chunk is issued the wave is finalized. Returns prompt
+        tokens dispatched (real rows x chunk_len, the budget currency)."""
+        d = w.pending_chunks.pop(0)
+        k = d["k"]
+        if k == 0:
+            logits = self._paged_prefill(d["toks"], d["stbl"])
+        else:
+            logits = self._paged_suffix(k, d["toks"], d["ptbl"], d["stbl"])
+        self.stats.prefill_calls += 1
+        spent = d["rows"] * self.chunk_len
+        self.stats.prefill_tokens_computed += spent
+        self.tracer.event("wave.chunk", wave=w.wave_id, chunk=k,
+                          tokens=spent, remaining=len(w.pending_chunks))
+        if not w.pending_chunks:
+            w._tok_c = logits
+            self._finalize_wave(w)
+        return spent
+
+    def _finalize_wave(self, w: _Wave) -> None:
+        """Last chunk landed: gather every row's first token from the
+        final chunk's packed logits (cached rows overlay their known
+        token) and apply the deferred COW copies — the wave is now
+        decode-eligible."""
+        f = w.finalize
+        w.finalize = None
+        tok = self._first_tokens(w._tok_c, f["src"], f["mask"], f["vals"])
+        w._tok_c = None
+        # COW copies must read fully written prompt pages, so they wait
+        # for the last chunk
+        self._copy_pages(f["copies"])
+        self.stats.pages_copied += sum(len(p) for p in f["copies"].values())
+        w.tok = tok[..., None]
+        w.emitted.append(tok)
+
+    def prefill_step(self, budget: int = 0) -> int:
+        """Dispatch pending prefill chunks FIFO across active waves — at
+        least one chunk per call so long prompts always progress —
+        stopping once ``budget`` prompt tokens (0 = unbounded) have been
+        issued. The executor calls this between admission and decode
+        ticks, so a long prompt's remaining chunks interleave with
+        co-resident waves' decode steps. Returns tokens dispatched."""
+        spent = 0
+        for w in list(self._active):
+            while w.pending_chunks:
+                spent += self._dispatch_chunk(w)
+                if budget and spent >= budget:
+                    return spent
+        return spent
+
+    @property
+    def has_pending_chunks(self) -> bool:
+        return any(w.pending_chunks for w in self._active)
 
     # -- decoding --------------------------------------------------------
     def tick(self, *, defer: bool = False) -> int:
@@ -351,11 +916,18 @@ class EngineCore:
         """
         advanced = 0
         for w in list(self._active):
+            # a wave with prefill chunks still pending has no sampled
+            # token yet: decode takes it once its last chunk lands
+            if w.tok is None:
+                continue
             if w.steps_left > 0:
                 if w.sp_decode is None and self.tracer.enabled:
                     w.sp_decode = self.tracer.begin_device(
                         "wave.decode", wave=w.wave_id, Bb=w.tok.shape[1])
-                logits = self._decode(w.cache, w.tok)
+                if self.kv_layout == "paged":
+                    logits = self._paged_decode(w)
+                else:
+                    logits = self._decode(w.cache, w.tok)
                 w.tok = self._sample(logits)
                 w.emitted.append(w.tok[..., 0])
                 w.steps_left -= 1
@@ -413,6 +985,23 @@ class EngineCore:
                     w.done[local][i] = True
             if w.steps_left <= 0 and all(all(d) for d in w.done.values()):
                 self._active.remove(w)
+                if self.kv_layout == "paged":
+                    self._retire_paged(w)
+
+    def _retire_paged(self, w: _Wave) -> None:
+        """Register computed prefixes in the cross-wave cache (the first
+        token plane is on the host by now, so registering costs no sync),
+        then release every page the wave's rows held. This runs only
+        after the wave's last token plane reached the host, which
+        completed every kernel that read its pages."""
+        for local, i, padded_len, chain, pages in w.register:
+            self.prefix_cache.insert(local, padded_len, chain, pages,
+                                     int(w.emitted[0][local, i]))
+        for local, rows in w.pages_held.items():
+            for pages in rows:
+                self.pool.release(local, pages)
+        w.pages_held = {}
+        w.register = []
 
     def poll(self) -> List[Tuple[int, Any, np.ndarray]]:
         """Drain finished (local expert, uid, tokens) triples."""
@@ -436,7 +1025,8 @@ class EngineCore:
 
 class DispatchExecutor:
     """How one scheduler step drives its shards: issue every shard's
-    prefill, then every shard's decode tick, then harvest. ``defer``
+    prefill, then pending prefill chunks under the step's token budget,
+    then every shard's decode tick, then harvest. ``defer``
     decides whether each dispatch blocks on its own device-to-host copy
     (serial, the reference) or nothing blocks until the single batched
     harvest copy per wave (overlapped). The computation is the same
@@ -448,6 +1038,11 @@ class DispatchExecutor:
 
     def run_step(self, sched) -> None:
         sched._admit_batches(defer=self.defer)
+        # pending chunks of partially prefilled waves go out here, bounded
+        # per step by SchedulerConfig.prefill_tokens_per_step, so the
+        # decode ticks below run every step while a long prompt prefills
+        # (on the blocking path admission already drained its chunks)
+        sched._prefill_chunks()
         sched._tick_engines(defer=self.defer)
         sched._harvest_engines()
 
@@ -464,7 +1059,7 @@ class OverlappedExecutor(DispatchExecutor):
     """Prefills and decode ticks for *all* shards are enqueued before
     anything blocks; tokens stay on the device and the host blocks at
     most once per wave per step, inside the batched harvest. (Separate
-    CUDA streams per shard arrive with port slice A7.)"""
+    CUDA streams per shard are a later piece of port slice A7.)"""
 
     name = "overlapped"
     defer = True

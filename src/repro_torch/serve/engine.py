@@ -7,7 +7,9 @@ What the engine guarantees (see ``EngineCore`` for mechanics):
     shapes the engine ever runs is bounded by the bucket-ladder product;
   * admitted groups stay resident (KV cache + last token) and advance one
     token per ``tick`` — the scheduler interleaves ticks across engines;
-  * the decode step writes the KV cache in place;
+  * the decode step writes the KV cache in place: the wave's ring
+    cache, or (``kv_layout="paged"``) the engine's page pool, with
+    prefix sharing, copy-on-write and chunked prefill (``chunk_len``);
   * per-row results are emitted as soon as a row has its
     ``max_new_tokens``, not when its whole group retires.
 """
@@ -26,17 +28,21 @@ __all__ = ["ExpertEngine", "EngineStats", "bucket_for", "make_buckets"]
 
 class ExpertEngine:
     """One expert model with bucketed shapes and resident groups. Runs on
-    ``cuda`` unless ``device="cpu"``; ``params`` must live there."""
+    ``cuda`` unless ``device="cpu"``; ``params`` must live there (and may
+    be shared with other engines: the engine never copies them)."""
 
     def __init__(self, model: BaseModel, params, *, max_len: int = 256,
                  min_len_bucket: int = 8,
                  batch_buckets: Optional[Sequence[int]] = None,
-                 kv_layout: str = "ring", chunk_len: Optional[int] = None,
+                 kv_layout: str = "ring", page_size: int = 8,
+                 pool_pages: Optional[int] = None,
+                 chunk_len: Optional[int] = None,
                  speculate_k: int = 0, device=None):
         self.core = EngineCore(model, [params], max_len=max_len,
                                min_len_bucket=min_len_bucket,
                                batch_buckets=batch_buckets,
-                               kv_layout=kv_layout, chunk_len=chunk_len,
+                               kv_layout=kv_layout, page_size=page_size,
+                               pool_pages=pool_pages, chunk_len=chunk_len,
                                speculate_k=speculate_k, device=device)
         self.model = model
         self.params = params

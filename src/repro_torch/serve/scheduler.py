@@ -8,12 +8,15 @@ Life of a request:
   step()   -> the dispatch executor runs one round over all shards:
               admission (per shard, pick one length bucket — fullest
               wins, with age-based promotion so sparse buckets can't
-              starve — and admit one micro-batch), then decode (every
-              shard with resident waves advances one token), then engine
-              harvest. With the default ``overlapped`` executor every
-              prefill and decode tick is *enqueued* before anything
-              blocks; ``executor="serial"`` keeps the blocking per-tick
-              reference behaviour.
+              starve — and admit one micro-batch; a paged engine pulls
+              the head row's prompt-prefix cohort into the same wave and
+              requeues the rows when its page pool is exhausted), then
+              pending prefill chunks under the step's token budget, then
+              decode (every shard with resident waves advances one
+              token), then engine harvest. With the default
+              ``overlapped`` executor every prefill and decode tick is
+              *enqueued* before anything blocks; ``executor="serial"``
+              keeps the blocking per-tick reference behaviour.
            -> harvest: finished rows become Responses immediately
   drain()  -> step() until all queues and engines are empty
 
@@ -37,6 +40,7 @@ from ..obs.metrics import Counter, Histogram, MetricsRegistry
 from ..obs.trace import NULL_TRACER
 from .core import DispatchExecutor, get_executor
 from .engine import ExpertEngine
+from .kvcache import PagePoolExhausted
 from .router import PrefixLRU, Router
 
 
@@ -65,6 +69,14 @@ class SchedulerConfig:
     max_queue: int = 4096           # admission queue cap (backpressure)
     promote_after: int = 4          # rounds a waiting bucket may be
     #                                 skipped before it wins admission
+    check_every: int = 0            # >0: run check_invariants() every N
+    #                                 steps (PagePool.check on every
+    #                                 paged shard)
+    prefill_tokens_per_step: int = 0
+    #                                 per-shard prompt-token budget for
+    #                                 pending prefill chunks each step
+    #                                 (0 = unbounded); at least one chunk
+    #                                 always dispatches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +90,8 @@ class SchedulerStats:
     responses: int = 0
     promotions: int = 0
     orphaned: int = 0
+    kv_stalls: int = 0
+    invariant_checks: int = 0
 
     def as_dict(self) -> Dict[str, int]:
         return dataclasses.asdict(self)
@@ -97,10 +111,16 @@ class _Pending:
     scores: np.ndarray
     shard: int = -1
     seq: int = 0                    # submit order, for age promotion
+    prefix_key: bytes = b""         # prompt-prefix cohort key (PrefixLRU)
     expert: int = -1                # routed expert
+    # lifecycle accounting (tracer clock, seconds): queue time is
+    # submit -> admit minus the stalled share; ``stall_since`` is open
+    # while the row is parked on PagePoolExhausted backpressure
     trace: int = 0                  # trace id (0 when tracing is off)
     t_submit: float = 0.0
     t_admit: float = 0.0
+    stalled_s: float = 0.0
+    stall_since: Optional[float] = None
 
 
 class Scheduler:
@@ -135,10 +155,16 @@ class Scheduler:
             collections.defaultdict(int)   # (shard, bucket) skip rounds
         self._counters: Dict[str, Counter] = {
             f.name: Counter() for f in dataclasses.fields(SchedulerStats)}
+        self._steps = 0
         self._done: List[Response] = []
         self._meta: Dict[int, _Pending] = {}   # uid -> routing info
-        self.prefix_lru = PrefixLRU()
+        # prompt-prefix cohort detection, keyed at the page granularity of
+        # the first paged engine (8 when every shard rings)
+        page = next((self._shard_engine(s).core.page for s in self.shards
+                     if self._paged_shard(s)), 8)
+        self.prefix_lru = PrefixLRU(page=page)
         self._h_queue = Histogram()
+        self._h_stalled = Histogram()
         self.tracer = NULL_TRACER
         self.bind_tracer(tracer)
         self.obs = self._build_metrics()
@@ -159,17 +185,22 @@ class Scheduler:
                 eng.core.bind_tracer(self.tracer)
 
     def _build_metrics(self) -> MetricsRegistry:
-        """The snapshot tree: scheduler counters + queue latency, every
-        engine's ``EngineStats`` and the router."""
+        """The snapshot tree: scheduler counters + queue and stall
+        latency, every engine's ``EngineStats``, every paged shard's page
+        pool counters and the router."""
         obs = MetricsRegistry()
         obs.register("scheduler", lambda: self.stats.as_dict())
         obs.register("scheduler/latency/queue_ms", self._h_queue)
+        obs.register("scheduler/latency/stalled_ms", self._h_stalled)
         obs.register("executor", lambda: {"name": self.executor.name})
         for shard in self.shards:
             eng = self._shard_engine(shard)
             if eng is not None:
                 obs.register(f"engines/shard{shard.sid}",
                              (lambda e=eng: e.stats.as_dict()))
+                if eng.core.pool is not None:
+                    obs.register(f"kv/shard{shard.sid}",
+                                 eng.core.pool.telemetry)
         if self.router is not None:
             obs.register("router", self._router_metrics)
         return obs
@@ -230,8 +261,8 @@ class Scheduler:
             sb = (engine.pad_shape(1, len(r.prompt))[1]
                   if hasattr(engine, "pad_shape") else len(r.prompt))
             self._seq += 1
-            self.prefix_lru.observe(r.prompt)
             p = _Pending(r, fine, scores, shard=sid, seq=self._seq,
+                         prefix_key=self.prefix_lru.observe(r.prompt),
                          expert=e, t_submit=self.tracer.now())
             if self.tracer.enabled:
                 p.trace = self.tracer.next_id()
@@ -253,6 +284,10 @@ class Scheduler:
         self._harvest()
         out, self._done = self._done, []
         self._counters["responses"].inc(len(out))
+        self._steps += 1
+        if (self.config.check_every
+                and self._steps % self.config.check_every == 0):
+            self.check_invariants()
         return out
 
     def drain(self) -> List[Response]:
@@ -269,12 +304,25 @@ class Scheduler:
         return any(eng is not None and eng.has_pending
                    for eng in map(self._shard_engine, self.shards))
 
+    def check_invariants(self) -> None:
+        """Page-pool refcount books balance on every paged shard
+        (``PagePool.check``), under real traffic. Enabled every N steps
+        via ``SchedulerConfig.check_every``."""
+        for shard in self.shards:
+            if self._paged_shard(shard):
+                self._shard_engine(shard).core.pool.check()
+        self._counters["invariant_checks"].inc()
+
     # -- internals -------------------------------------------------------
     def _shard_engine(self, shard: Shard) -> Optional[ExpertEngine]:
         """The tickable engine behind a shard; None for stub/legacy
         backends that complete at admission."""
         engine = self.registry[shard.experts[0]].backend
         return engine if isinstance(engine, ExpertEngine) else None
+
+    def _paged_shard(self, shard: Shard) -> bool:
+        eng = self._shard_engine(shard)
+        return eng is not None and eng.kv_layout == "paged"
 
     def _pick_bucket(self, shard: Shard) -> Optional[int]:
         """Length bucket this shard admits this round: the fullest bucket
@@ -309,19 +357,70 @@ class Scheduler:
         self._skips.pop((shard.sid, sb), None)
         return sb
 
-    def _pop(self, e: int, sb: int, cap: int) -> List[_Pending]:
-        """Take up to ``cap`` rows, FIFO, from one bucket queue."""
+    def _pop(self, e: int, sb: int, cap: int,
+             prefix_group: bool = False) -> List[_Pending]:
+        """Take up to ``cap`` rows from one bucket queue.
+
+        Plain FIFO normally; with ``prefix_group`` (paged shards) the
+        head's prompt-prefix cohort is pulled forward so prefix-sharing
+        rows land in the same wave, which is what lets the paged engine
+        deduplicate their prefill and share pages. Other rows keep their
+        relative order and fill any remaining capacity.
+        """
         q = self.queues[e][sb]
-        take = [q.popleft() for _ in range(min(len(q), cap))]
+        if prefix_group and len(q) > 1 and cap > 1:
+            key = q[0].prefix_key
+            idxs = [i for i, p in enumerate(q)
+                    if p.prefix_key == key][:cap]
+            if len(idxs) < cap:
+                fill = [i for i, p in enumerate(q)
+                        if p.prefix_key != key][:cap - len(idxs)]
+                idxs = sorted(idxs + fill)
+            picked = set(idxs)
+            take = [q[i] for i in idxs]
+            rest = [q[i] for i in range(len(q)) if i not in picked]
+            q.clear()
+            q.extend(rest)
+        else:
+            take = [q.popleft() for _ in range(min(len(q), cap))]
         self.n_queued -= len(take)
         if not q:
             del self.queues[e][sb]
         return take
 
+    def _requeue(self, e: int, sb: int, take: List[_Pending]) -> None:
+        """Put popped rows back at the queue front (order preserved) —
+        the page pool could not host their wave this round."""
+        q = self.queues[e][sb]
+        for p in reversed(take):
+            q.appendleft(p)
+        self.n_queued += len(take)
+
+    def _note_stall(self, e: int, sb: int) -> None:
+        """Open the stall clock on every parked row in queue (e, sb) that
+        isn't already stalled, and emit one ``kv.requeue`` event covering
+        exactly those rows."""
+        q = self.queues[e].get(sb)
+        if not q:
+            return
+        t = self.tracer.now()
+        fresh = [p for p in q if p.stall_since is None]
+        for p in fresh:
+            p.stall_since = t
+        if fresh and self.tracer.enabled:
+            self.tracer.event("kv.requeue", expert=e, rows=len(fresh),
+                              uids=[p.req.uid for p in fresh],
+                              traces=[p.trace for p in fresh])
+
     def _mark_admitted(self, take: List[_Pending], sid: int, sb: int
                        ) -> None:
+        """Close stall clocks and stamp admission time on every row of a
+        successfully admitted micro-batch."""
         t = self.tracer.now()
         for p in take:
+            if p.stall_since is not None:
+                p.stalled_s += t - p.stall_since
+                p.stall_since = None
             p.t_admit = t
         if take and self.tracer.enabled:
             self.tracer.event("request.admit", shard=sid, bucket=sb,
@@ -329,15 +428,22 @@ class Scheduler:
                               traces=[p.trace for p in take])
 
     def _finish_row(self, p: _Pending) -> None:
-        """Close the row's lifecycle accounting at response emission."""
+        """Close the row's lifecycle accounting at response emission:
+        fold any open stall and split the wait into the queue / stalled
+        histograms (milliseconds)."""
         t = self.tracer.now()
+        if p.stall_since is not None:
+            p.stalled_s += t - p.stall_since
+            p.stall_since = None
         admit = p.t_admit if p.t_admit else t
-        queue_s = max(admit - p.t_submit, 0.0)
+        queue_s = max(admit - p.t_submit - p.stalled_s, 0.0)
         self._h_queue.observe(queue_s * 1e3)
+        self._h_stalled.observe(p.stalled_s * 1e3)
         if self.tracer.enabled:
             self.tracer.event(
                 "request.finish", uid=p.req.uid, trace=p.trace,
                 expert=p.expert, queue_ms=queue_s * 1e3,
+                stalled_ms=p.stalled_s * 1e3,
                 total_ms=(t - p.t_submit) * 1e3)
             self.tracer.release_uid(p.req.uid)
 
@@ -354,19 +460,30 @@ class Scheduler:
         engine = self.registry[e].backend
         name = self.registry[e].name
         cap = self.config.max_batch
+        paged = isinstance(engine, ExpertEngine) and \
+            engine.kv_layout == "paged"
         if isinstance(engine, ExpertEngine):
             cap = min(cap, engine.batch_buckets[-1])
-        take = self._pop(e, sb, cap)
+        take = self._pop(e, sb, cap, prefix_group=paged)
         if not take:
             return
-        self._counters["batches"].inc()
         if isinstance(engine, ExpertEngine):
-            engine.admit([p.req.uid for p in take],
-                         [p.req.prompt for p in take],
-                         [p.req.max_new_tokens for p in take],
-                         defer=defer)
+            try:
+                engine.admit([p.req.uid for p in take],
+                             [p.req.prompt for p in take],
+                             [p.req.max_new_tokens for p in take],
+                             defer=defer)
+            except PagePoolExhausted:
+                if not engine.n_active:
+                    raise      # pool too small for even one wave
+                self._requeue(e, sb, take)
+                self._note_stall(e, sb)
+                self._counters["kv_stalls"].inc()
+                return
+            self._counters["batches"].inc()
             self._mark_admitted(take, self._shard_of.get(e, -1), sb)
         elif engine is None:
+            self._counters["batches"].inc()
             for p in take:
                 self._meta.pop(p.req.uid, None)
                 self._done.append(self._response(
@@ -374,6 +491,7 @@ class Scheduler:
                 self._finish_row(p)
         else:
             # legacy blocking engines: one padded batch call
+            self._counters["batches"].inc()
             m = max(len(p.req.prompt) for p in take)
             toks = np.zeros((len(take), m), np.int32)
             for i, p in enumerate(take):
@@ -385,6 +503,19 @@ class Scheduler:
                 self._done.append(self._response(
                     p, name, gen[i, :p.req.max_new_tokens]))
                 self._finish_row(p)
+
+    def _prefill_chunks(self) -> None:
+        """Issue pending prefill chunks of partially prefilled waves,
+        bounded per shard by ``SchedulerConfig.prefill_tokens_per_step``
+        (0 = drain). Runs between admission and decode ticks: a long
+        prompt admitted with deferred chunks spends at most the budget
+        per step, and the decode ticks that follow run every step. A wave
+        becomes decode-eligible once its last chunk lands."""
+        budget = self.config.prefill_tokens_per_step
+        for shard in self.shards:
+            eng = self._shard_engine(shard)
+            if eng is not None and eng.core.has_pending_chunks:
+                eng.core.prefill_step(budget)
 
     def _tick_engines(self, *, defer: bool = False) -> None:
         """Advance every shard's resident waves one token."""
@@ -433,9 +564,11 @@ class RoutedServer:
     incremental users call ``submit``/``step`` directly. ``executor``
     (``"overlapped"`` — the default — or ``"serial"``, the blocking
     reference) picks how each step drives its shards; both give identical
-    tokens. Runs on ``cuda`` unless ``device="cpu"``; the matcher and the
-    engines must live there. ``placement`` and ``hub`` arrive with port
-    slice A9.
+    tokens. ``prefill_tokens_per_step`` bounds the chunked-prefill tokens
+    each paged shard issues per step; ``check_every`` runs the page-pool
+    invariant check every N steps. Runs on ``cuda`` unless
+    ``device="cpu"``; the matcher and the engines must live there.
+    ``placement`` and ``hub`` arrive with port slice A9.
     """
 
     def __init__(self, matcher: Optional[ExpertMatcher],
@@ -443,7 +576,9 @@ class RoutedServer:
                  *, max_batch: int = 16, route_cache_size: int = 4096,
                  use_fine_kernel: bool = True, placement=None,
                  executor: "str | DispatchExecutor" = "overlapped",
-                 hub=None, tracer=None, device=None):
+                 hub=None, check_every: int = 0,
+                 prefill_tokens_per_step: int = 0, tracer=None,
+                 device=None):
         if placement is not None:
             raise NotImplementedError(
                 "banked placement arrives with port slice A9")
@@ -471,7 +606,9 @@ class RoutedServer:
         self.router = Router(matcher, cache_size=route_cache_size,
                              use_fine_kernel=use_fine_kernel)
         self.scheduler = Scheduler(
-            self.router, registry, SchedulerConfig(max_batch=max_batch),
+            self.router, registry,
+            SchedulerConfig(max_batch=max_batch, check_every=check_every,
+                            prefill_tokens_per_step=prefill_tokens_per_step),
             executor=executor, tracer=tracer)
         #: the unified metrics registry — ``obs.snapshot()`` is the whole
         #: server's state as one nested dict

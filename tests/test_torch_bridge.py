@@ -72,3 +72,25 @@ def test_matcher_state_round_trip():
     back = dict(_leaves(to_numpy(tt)))
     for path, a in _leaves(tree):
         np.testing.assert_array_equal(back[path], a, err_msg=path)
+
+
+def test_paged_pool_and_table_round_trip():
+    """A reference engine's bf16 page pool (E, P1, L, page, KV, dh) and
+    int32 page table cross unchanged: the port keeps the pool layout."""
+    cfg = get_config("llama3_2_1b").reduced(param_dtype="bfloat16",
+                                            compute_dtype="bfloat16")
+    model = build_model(cfg)
+    pool = model.init_paged_pool(6, 8)
+    pool = {k: jnp.stack([v, v + 1]) for k, v in pool.items()}
+    pool["k"] = pool["k"] + jax.random.normal(
+        jax.random.PRNGKey(0), pool["k"].shape, jnp.bfloat16)
+    table = jnp.asarray([[3, 0, 6, 6], [1, 2, 5, 6]], jnp.int32)
+    tree = jax.device_get({"pool": pool, "table": table})
+    tt = to_torch(tree, device="cpu")
+    assert tt["pool"]["k"].dtype == torch.bfloat16
+    assert tuple(tt["pool"]["k"].shape) == (2, 7, cfg.n_layers, 8,
+                                            cfg.n_kv_heads, cfg.dh)
+    assert tt["table"].dtype == torch.int32
+    back = dict(_leaves(to_numpy(tt)))
+    for path, a in _leaves(tree):
+        np.testing.assert_array_equal(back[path], _bits(a), err_msg=path)

@@ -6,7 +6,10 @@ tests/test_kernels.py runs them) on the same numpy inputs, at the
 tolerances of tests/test_kernels.py: rtol 2e-5 for f32, 2e-2 for bf16.
 The ``cuda`` cases hold each hand-written CUDA kernel to its plain
 version on the card (bf16 decode at 4e-3, about 8x the largest error
-measured on an H100) and skip elsewhere.
+measured on an H100) and skip elsewhere; the paged decode kernel must
+also equal the ring decode kernel on the gathered view bit for bit.
+(The paged kernel's plain version is held to the reference in
+tests/test_torch_paged.py.)
 """
 import numpy as np
 import pytest
@@ -198,8 +201,13 @@ def test_cpu_calls_take_the_plain_path_and_count_nothing():
     tops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
                           torch.from_numpy(v), torch.tensor(t),
                           torch.from_numpy(kv_pos))
+    pages = torch.from_numpy(k).reshape(2, 8, 2, 32)
+    tops.paged_decode_attention(torch.from_numpy(q), pages, pages,
+                                torch.tensor([[1, 0]], dtype=torch.int32),
+                                torch.tensor(t), torch.from_numpy(kv_pos))
     assert tops.launches() == {"expert_score": 0, "cosine_scores": 0,
-                               "decode_attention": 0}
+                               "decode_attention": 0,
+                               "paged_decode_attention": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -212,6 +220,9 @@ def test_wrappers_refuse_other_devices():
         tops.decode_attention(q, k, k, pos[0], pos)
     with pytest.raises(ValueError, match="unsupported device"):
         tops.cosine_scores(q[0], q[0], pos[:4].float())
+    with pytest.raises(ValueError, match="unsupported device"):
+        tops.paged_decode_attention(q, k[0], k[0], pos[None, :1], pos[0],
+                                    pos)
 
 
 # -- on the card: each CUDA kernel against its plain version --------------
@@ -307,3 +318,60 @@ def test_cuda_decode_attention_empty_and_scrambled_ring(cuda):
                               v[:, perm].contiguous(), t, kv_pos[perm],
                               window=64)
     torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def _paged_case(cuda, B, H, KV, dh, page, nlp, L, dtype, seed, pad=0):
+    """Layer view L // 2 of a (P1, L, page, KV, dh + pad) pool on the
+    card, with the scrambled table of tests/test_torch_paged.py."""
+    from test_torch_paged import paged_inputs
+    q, kp, vp, tbl, qp, kv_pos = paged_inputs(B, H, KV, dh, page, nlp, seed,
+                                              layers=L, pad=pad)
+    td = getattr(torch, dtype)
+    i = L // 2
+
+    def card(a):
+        return torch.from_numpy(a).to(cuda)
+
+    return (card(q).to(td), card(kp).to(td)[:, i, ..., :dh],
+            card(vp).to(td)[:, i, ..., :dh], card(tbl),
+            torch.tensor(int(qp), dtype=torch.int32, device=cuda),
+            card(kv_pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,dh,page,nlp,win,dtype", [
+    (3, 8, 2, 64, 8, 8, 0, "float32"),
+    (2, 4, 4, 64, 16, 4, 0, "float32"),
+    (3, 8, 2, 64, 8, 8, 24, "float32"),
+    (1, 16, 2, 128, 8, 4, 0, "float32"),
+    (2, 8, 2, 64, 8, 8, 0, "bfloat16"),
+    (16, 32, 8, 64, 8, 32, 0, "bfloat16"),   # llama3_2_1b paged decode
+    (4, 32, 8, 64, 16, 16, 100, "bfloat16"),
+])
+def test_cuda_paged_decode_attention_kernel(cuda, B, H, KV, dh, page, nlp,
+                                            win, dtype):
+    args = _paged_case(cuda, B, H, KV, dh, page, nlp, 3, dtype,
+                       seed=page * nlp + H)
+    n0 = tops.paged_decode_attention.launches
+    got = tops.paged_decode_attention(*args, window=win)
+    assert tops.paged_decode_attention.launches == n0 + 1
+    want = tops.paged_decode_attention_plain(*args, window=win)
+    tol = 4e-3 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # the ring kernel on the gathered (contiguous) view: same tiles, same
+    # order, same arithmetic
+    from repro_torch.models.attention import paged_gather
+    q, kp, vp, tbl, qp, kv_pos = args
+    kd, vd = paged_gather(kp, vp, tbl)
+    ring = tops.decode_attention(q, kd.contiguous(), vd.contiguous(), qp,
+                                 kv_pos, window=win)
+    assert torch.equal(got, ring)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_decode_attention_refuses_copies(cuda):
+    """Pages whose (page, KV, dh) is not contiguous raise instead of
+    being copied."""
+    args = _paged_case(cuda, 2, 8, 2, 64, 8, 4, 2, "float32", seed=0, pad=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.paged_decode_attention(*args)
