@@ -37,12 +37,29 @@ Phases, each printing one JSON line:
    bucket: eager wall time, device time (the step replayed as a CUDA
    graph), the kernels it launches (``torch.profiler``), and the device's
    busy share.
-6. kernels — each kernel against its plain PyTorch version on the same
+6. serve_rwkv — a mixed-family server, as the reference's launcher
+   builds one: an AE bank of K = 4 in front of two full-width bf16
+   ``rwkv6_7b`` engines (random seeded weights, ring, ``max_len`` 256)
+   and two ``llama3_2_1b`` engines sharing the serve phase's weight
+   tensors, serving 24 routed requests (fingerprints chosen by their
+   route: at least 6 per RWKV expert, RWKV prompt buckets both below the
+   32-token chunk, a scan prefill, and at or above it, a chunked one),
+   serial and overlapped. Every RWKV decode layer goes through
+   ``wkv_step`` (32 launches per RWKV decode step) and every llama one
+   through ``decode_attention``; the two executors' tokens must be equal.
+7. breakdown_rwkv — one RWKV decode step at that phase's largest RWKV
+   decode bucket, timed as in phase 5, with ``wkv_step``'s share.
+8. kernels — each kernel against its plain PyTorch version on the same
    inputs at the shapes its serve phase gave it (tolerance stated), and
    its device time beside the plain version's, a library yardstick's and
    its bound (L2 flushed before every timed launch, as the serving path
    finds it); ``paged_decode_attention`` must also equal
-   ``decode_attention`` on the gathered view bit for bit.
+   ``decode_attention`` on the gathered view bit for bit, and 256
+   chained ``wkv_step`` launches must follow 256 plain steps.
+
+The reference phase (2) also runs a reduced f32 ``rwkv6_7b`` expert
+(``ssm_chunk`` 16) on the card and on the CPU, through both of its
+prefill branches: logits must agree and greedy tokens be equal.
 
 Then a summary line ``{"kernels": [...]}``, the raw ``nvidia-smi`` name
 and power-limit line, and as the last line
@@ -105,10 +122,16 @@ def main() -> int:
     paged = serve_paged_phase(np, torch, dev, ops, shapes)
     emit(paged)
     emit(breakdown_phase(np, torch, dev, shapes))
+    rwkv, rshapes = serve_rwkv_phase(np, torch, dev, ops, shapes)
+    emit(rwkv)
+    emit(breakdown_rwkv_phase(np, torch, dev, rshapes))
+    shapes["rwkv_rows"] = rshapes["decode_rows"]
+    del rshapes                      # the last RWKV expert's weights
     kernels = kernel_phase(np, torch, dev, ops, shapes)
     for k in kernels:
         # each kernel's count from the serial run of the path it serves
-        run = paged if k["name"] == "paged_decode_attention" else serve
+        run = {"paged_decode_attention": paged,
+               "wkv_step": rwkv}.get(k["name"], serve)
         k["launches"] = run["serial"]["launches"][k["name"]]
     emit({"kernels": kernels})
     print(smi, flush=True)
@@ -163,7 +186,87 @@ def reference_phase(np, torch, dev):
             "logits_tol": "abs 1e-4 x max(|logit|, 1)",
             "tokens_equal": True, "rows": int(toks.shape[0]),
             "new_tokens": 12,
-            "paged": paged_reference(np, torch, dev, model, cpu)}
+            "paged": paged_reference(np, torch, dev, model, cpu),
+            "rwkv": rwkv_reference(np, torch, dev)}
+
+
+def rwkv_reference(np, torch, dev):
+    """A reduced f32 ``rwkv6_7b`` expert (``ssm_chunk`` 16) on the card,
+    through ``wkv_step``, and on the CPU, through its plain version, from
+    the same weights. Model calls: prompts of 8 (scan), 32 (chunked) and
+    40 tokens (not a multiple of the chunk: scan), a prefill and four
+    decode steps fed the CPU's tokens; engine ``generate`` pads the same
+    prompts to buckets 8 (scan), 32 and 64 (chunked). Logits must agree
+    within abs 1e-4 x max(|logit|, 1) and greedy tokens be equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import ExpertEngine
+
+    cfg = get_config("rwkv6_7b").reduced(name="smoke-rwkv-ref")
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(SEED), device="cpu")
+    trained_like(torch, cpu, torch.Generator().manual_seed(SEED + 1))
+    gpu = _tree(cpu, lambda t: t.to(dev))
+    rng = np.random.default_rng(SEED + 7)
+    worst, scale, n_steps = 0.0, 0.0, 0
+    ops.reset_launches()
+    for S in (8, 32, 40):
+        toks = rng.integers(0, cfg.vocab_size, size=(3, S)).astype(np.int32)
+        lc, cc = model.prefill(cpu, {"tokens": torch.from_numpy(toks)})
+        lg, cg = model.prefill(gpu, {"tokens": torch.from_numpy(toks).to(dev)})
+        for _ in range(4):
+            worst = max(worst, (lg.cpu() - lc).abs().max().item())
+            scale = max(scale, lc.abs().max().item())
+            tok = lc.argmax(-1).to(torch.int32)[:, None]
+            lc, cc = model.decode(cpu, cc, {"token": tok})
+            lg, cg = model.decode(gpu, cg, {"token": tok.to(dev)})
+            n_steps += 1
+        worst = max(worst, (lg.cpu() - lc).abs().max().item())
+        for key in ("S", "x_tm", "x_cm"):
+            worst = max(worst, (cg[key].cpu() - cc[key]).abs().max().item())
+    launches = ops.launches()["wkv_step"]
+    if launches != cfg.n_layers * n_steps:
+        raise AssertionError(f"reference: wkv_step launched {launches} times "
+                             f"for {n_steps} decode steps of {cfg.n_layers} "
+                             "layers")
+    if not worst <= 1e-4 * max(scale, 1.0):
+        raise AssertionError(f"reference: card RWKV logits or states differ "
+                             f"from the CPU plain path by {worst} (scale "
+                             f"{scale})")
+    toks = [rng.integers(0, cfg.vocab_size, size=(3, S)).astype(np.int32)
+            for S in (8, 32, 40)]
+    want = [ExpertEngine(model, cpu, max_len=64, device="cpu").generate(t, 12)
+            for t in toks]
+    got = [ExpertEngine(model, gpu, max_len=64, device=dev).generate(t, 12)
+           for t in toks]
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"reference: RWKV greedy tokens differ\n{got}\n"
+                             f"{want}")
+    return {"config": cfg.name, "ssm_chunk": cfg.ssm_chunk,
+            "prompt_lens": [8, 32, 40], "model_prefill": ["scan", "chunked",
+                                                          "scan"],
+            "engine_buckets": [8, 32, 64], "decode_steps": n_steps,
+            "wkv_step_launches": launches,
+            "max_abs_err": worst, "logits_scale": scale,
+            "tol": "abs 1e-4 x max(|logit|, 1), logits and state leaves",
+            "tokens_equal": True, "new_tokens": 12}
+
+
+def trained_like(torch, params, gen):
+    """Give the RWKV6 leaves its init sets to zero the values of a trained
+    checkpoint, in place: token-shift mixes in [0, 1), a small ddlerp LoRA
+    input (tanh unsaturated), a bonus ``first_u`` of scale 0.5. At zero
+    the bonus, token-shift and ddlerp terms would multiply zero."""
+    lay = params["layers"]
+    D = lay["maa_x"].shape[-1]
+    for name in ("maa_x", "maa_base", "ch_maa_k", "ch_maa_r"):
+        lay[name].copy_(torch.rand(lay[name].shape, generator=gen,
+                                   device=gen.device))
+    lay["maa_w1"].copy_(torch.randn(lay["maa_w1"].shape, generator=gen,
+                                    device=gen.device) * (0.5 / D ** 0.5))
+    lay["first_u"].copy_(torch.randn(lay["first_u"].shape, generator=gen,
+                                     device=gen.device) * 0.5)
 
 
 def paged_reference(np, torch, dev, model, cpu_params):
@@ -349,9 +452,9 @@ def serve_phase(np, torch, dev, ops):
         if not all(launches[k] for k in RING_PATH):
             raise AssertionError(f"{executor}: a kernel never launched on "
                                  f"the main path: {launches}")
-        if launches["paged_decode_attention"]:
-            raise AssertionError(f"{executor}: the paged kernel ran on the "
-                                 f"ring path: {launches}")
+        if launches["paged_decode_attention"] or launches["wkv_step"]:
+            raise AssertionError(f"{executor}: the paged or RWKV kernel ran "
+                                 f"on the dense ring path: {launches}")
         if launches["decode_attention"] != cfg.n_layers * steps:
             raise AssertionError(
                 f"{executor}: decode_attention launched "
@@ -591,6 +694,22 @@ def breakdown_phase(np, torch, dev, shapes):
         cache["pos"], cache["t"] = pos0, t0_
         return model.decode(params, cache, {"token": tok})[0]
 
+    timed = step_times(torch, step, n)
+    top = sorted(timed.pop("by_name").items(), key=lambda kv: -kv[1])[:6]
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       _leaves(params))
+    return {"phase": "breakdown", "rows": B, "prompt_len": Sb,
+            "cache_len": shapes["max_len"], **timed,
+            "profiler_top_kernels_ms": [[k[:60], v] for k, v in top],
+            "weight_gb": weight_bytes / 1e9,
+            "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def step_times(torch, step, n):
+    """Eager wall ms per call of ``step`` (median of ``n``, synchronised),
+    device ms per call (captured once in a CUDA graph, replayed ``n``
+    times), device busy share, and the kernels three eager calls launch
+    (``torch.profiler``): count and ms per step, ms by kernel name."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -633,18 +752,12 @@ def breakdown_phase(np, torch, dev, shapes):
     for ev in kern:
         by_name[ev.name] = by_name.get(ev.name, 0.0) \
             + ev.time_range.elapsed_us() / 3e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    weight_bytes = sum(t.numel() * t.element_size() for t in
-                       _leaves(params))
-    return {"phase": "breakdown", "rows": B, "prompt_len": Sb,
-            "cache_len": shapes["max_len"], "steps_timed": n,
-            "wall_ms_per_step": wall, "graph_device_ms_per_step": device,
+    return {"steps_timed": n, "wall_ms_per_step": wall,
+            "graph_device_ms_per_step": device,
             "device_busy_share": device / wall,
             "profiler_kernels_per_step": len(kern) / 3,
             "profiler_kernel_ms_per_step": sum(by_name.values()),
-            "profiler_top_kernels_ms": [[k[:60], v] for k, v in top],
-            "weight_gb": weight_bytes / 1e9,
-            "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
+            "by_name": by_name}
 
 
 def _leaves(node):
@@ -653,6 +766,211 @@ def _leaves(node):
             yield from _leaves(v)
     else:
         yield node
+
+
+# ---------------------------------------------------------------------------
+# serve_rwkv: RWKV6 experts beside dense ones behind one router
+# ---------------------------------------------------------------------------
+
+#: (name, family) of the mixed-family server's experts, in bank order, and
+#: the requests each gets out of 24
+RWKV_FLEET = (("rwkv_a", "rwkv", 7), ("rwkv_b", "rwkv", 7),
+              ("llama_a", "dense", 5), ("llama_b", "dense", 5))
+
+
+def serve_rwkv_phase(np, torch, dev, ops, shapes):
+    """Two full-width bf16 ``rwkv6_7b`` engines (random seeded weights,
+    the leaves their init zeroes set as a trained checkpoint has them;
+    ring, ``max_len`` 256) and two ``llama3_2_1b`` engines sharing the
+    serve phase's weight tensors, behind an AE bank of K = 4 built on the
+    CPU from seeded AEs (coarse scoring through ``expert_score``). The 24
+    fingerprints are chosen by their route on the CPU copy of the bank,
+    each winning by a relative margin of at least 1e-3: 7 per RWKV
+    expert, 5 per llama one. RWKV prompts alternate between 8-16 tokens
+    (buckets 8 / 16: scan prefill, below the 32-token chunk) and 17-64
+    (buckets 32 / 64: chunked prefill); llama prompts take 8-64. 16 new
+    tokens each; serial, then overlapped."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ExpertRegistry, MatcherConfig,
+                                  build_matcher, init_ae)
+    from repro_torch.models import build_model
+    from repro_torch.serve import ExpertEngine, Request, RoutedServer
+
+    rng = np.random.default_rng(SEED + 11)
+    names = [n for n, _, _ in RWKV_FLEET]
+    aes = [init_ae(torch.Generator().manual_seed(SEED + 20 + i),
+                   device="cpu") for i in range(len(names))]
+    cent_data = [(rng.random((256, 784), dtype=np.float32),
+                  np.arange(256) % 4) for _ in names]
+    m_cpu = build_matcher(aes, names, cent_data, device="cpu")
+    matcher = build_matcher(aes, names, cent_data,
+                            MatcherConfig(use_kernel=True), device=dev)
+    cands = (rng.random((4096, 784), dtype=np.float32)
+             ** rng.uniform(0.2, 5.0, (4096, 1)).astype(np.float32))
+    sc = torch.sort(m_cpu.coarse_scores(torch.from_numpy(cands)), dim=-1)
+    best = m_cpu.assign_coarse(torch.from_numpy(cands)).numpy()
+    margin = ((sc.values[:, 1] - sc.values[:, 0])
+              / sc.values[:, 0].abs().clamp_min(1e-30)).numpy()
+    picks = []
+    for e, (name, family, n) in enumerate(RWKV_FLEET):
+        idx = np.flatnonzero((best == e) & (margin >= 1e-3))
+        if len(idx) < n:
+            raise AssertionError(f"serve_rwkv: only {len(idx)} of 4096 "
+                                 f"fingerprints route to {name}")
+        for i, j in enumerate(idx[:n]):
+            if family == "rwkv":
+                lo, hi = (8, 16) if i % 2 == 0 else (17, 64)
+            else:
+                lo, hi = 8, 64
+            picks.append((name, cands[j], int(rng.integers(lo, hi + 1))))
+    picks = [picks[i] for i in rng.permutation(len(picks))]
+
+    rcfg = get_config("rwkv6_7b")
+    rmodel = build_model(rcfg)
+    ring = shapes["registry"]
+    lmodel = shapes["engine"].model
+    registry = ExpertRegistry()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    for e, (name, family, _) in enumerate(RWKV_FLEET):
+        if family == "rwkv":
+            gen = torch.Generator(device=dev).manual_seed(SEED + 30 + e)
+            params = rmodel.init(gen, device=dev)
+            trained_like(torch, params, gen)
+            registry.add(name, ExpertEngine(rmodel, params, max_len=256,
+                                            device=dev))
+        else:
+            registry.add(name, ExpertEngine(lmodel, ring[e - 2].backend.params,
+                                            max_len=256, device=dev))
+    torch.cuda.synchronize()
+    rwkv_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+    engines = [registry[e].backend for e in range(len(registry))]
+    is_rwkv = [f == "rwkv" for _, f, _ in RWKV_FLEET]
+
+    def requests(uid0):
+        return [Request(uid=uid0 + u, features=f,
+                        prompt=np.random.default_rng(SEED + u).integers(
+                            0, rcfg.vocab_size, size=n).astype(np.int32),
+                        max_new_tokens=16)
+                for u, (_, f, n) in enumerate(picks)]
+
+    # warm-up traffic of the same shapes on a server of its own
+    RoutedServer(matcher, registry, executor="serial",
+                 device=dev).serve(requests(10_000))
+    runs, tokens = {}, {}
+    for executor in ("serial", "overlapped"):
+        server = RoutedServer(matcher, registry, executor=executor,
+                              device=dev)
+        before = [(e.stats.host_blocks, e.stats.decode_steps)
+                  for e in engines]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        resps = server.serve(requests(0))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = ops.launches()
+        if len(resps) != len(picks):
+            raise AssertionError(f"serve_rwkv {executor}: {len(resps)} "
+                                 f"responses for {len(picks)} requests")
+        for r in resps:
+            vocab = engines[names.index(r.expert)].model.cfg.padded_vocab
+            if r.tokens.shape != (16,) or not (
+                    (r.tokens >= 0) & (r.tokens < vocab)).all():
+                raise AssertionError(f"serve_rwkv {executor}: bad response "
+                                     f"{r}")
+        steps = [e.stats.decode_steps - b[1] for e, b in zip(engines, before)]
+        blocks = sum(e.stats.host_blocks - b[0]
+                     for e, b in zip(engines, before))
+        r_steps = sum(s_ for s_, r in zip(steps, is_rwkv) if r)
+        l_steps = sum(steps) - r_steps
+        if launches["wkv_step"] != rcfg.n_layers * r_steps:
+            raise AssertionError(
+                f"serve_rwkv {executor}: wkv_step launched "
+                f"{launches['wkv_step']} times for {r_steps} RWKV decode "
+                f"steps of {rcfg.n_layers} layers")
+        if launches["decode_attention"] != lmodel.cfg.n_layers * l_steps:
+            raise AssertionError(
+                f"serve_rwkv {executor}: decode_attention launched "
+                f"{launches['decode_attention']} times for {l_steps} llama "
+                f"decode steps of {lmodel.cfg.n_layers} layers")
+        if not (launches["expert_score"] and launches["cosine_scores"]) \
+                or launches["paged_decode_attention"]:
+            raise AssertionError(f"serve_rwkv {executor}: launches "
+                                 f"{launches}")
+        routed = {n: sum(r.expert == n for r in resps) for n in names}
+        # the (batch, length) buckets each engine ran: the warm-up served
+        # the same traffic, so these are this run's
+        buckets = {n: sorted({sb for _, sb in e.core._prefill_shapes})
+                   for n, e in zip(names, engines)}
+        for n, f, _ in RWKV_FLEET:
+            if f == "rwkv" and (routed[n] < 6 or min(buckets[n]) > 16
+                                or max(buckets[n]) < 32):
+                raise AssertionError(
+                    f"serve_rwkv {executor}: {n} got {routed[n]} requests "
+                    f"in prompt buckets {buckets[n]}")
+        n_tok = sum(len(r.tokens) for r in resps)
+        tokens[executor] = [(r.expert, r.tokens) for r in resps]
+        runs[executor] = {
+            "seconds": dt, "req_per_s": len(resps) / dt,
+            "generated_tok_per_s": n_tok / dt, "tokens": n_tok,
+            "decode_steps_rwkv": r_steps, "decode_steps_llama": l_steps,
+            "host_blocks": blocks, "launches": launches, "routed": routed,
+            "prefill_buckets": buckets,
+            "rwkv_decode_rows_max": max(
+                max(e.core._decode_shapes, default=0)
+                for e, r in zip(engines, is_rwkv) if r)}
+    if not all(a[0] == b[0] and np.array_equal(a[1], b[1])
+               for a, b in zip(tokens["serial"], tokens["overlapped"])):
+        raise AssertionError("serve_rwkv: serial and overlapped tokens "
+                             "differ")
+    rows = runs["serial"]["rwkv_decode_rows_max"]
+    return ({"phase": "serve_rwkv", "config": rcfg.name,
+             "experts": {n: f for n, f, _ in RWKV_FLEET},
+             "requests": len(picks), "max_new_tokens": 16,
+             "kv": "ring", "max_len": 256, "rwkv_param_gb": rwkv_gb,
+             "tokens_equal": True, "serial": runs["serial"],
+             "overlapped": runs["overlapped"],
+             "kernel_shape": {"wkv_step": [rows, rcfg.n_heads, rcfg.dh]}},
+            {"decode_rows": rows, "engine": engines[0], "cfg": rcfg})
+
+
+def breakdown_rwkv_phase(np, torch, dev, rshapes):
+    """One RWKV decode step of a wave at serve_rwkv's largest RWKV decode
+    bucket, after a 32-token (chunked) prefill, timed as
+    ``breakdown_phase`` times the dense step; ``wkv_step``'s share of the
+    step's kernel time from ``torch.profiler``. The step updates the
+    state in place, so each replay decodes from the state the last one
+    left (same shapes, same work)."""
+    eng, cfg = rshapes["engine"], rshapes["cfg"]
+    model, params = eng.model, eng.params
+    B, Sb, n = rshapes["decode_rows"], 32, 20
+    rng = np.random.default_rng(SEED + 1)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(B, Sb)).astype(np.int32)).to(dev)
+    _, cache = model.prefill(params, {"tokens": toks})
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+
+    def step():
+        return model.decode(params, cache, {"token": tok})[0]
+
+    timed = step_times(torch, step, n)
+    by_name = timed.pop("by_name")
+    wkv_ms = sum(v for k, v in by_name.items() if "wkv_step" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       _leaves(params))
+    state_bytes = sum(cache[k].numel() * cache[k].element_size()
+                      for k in ("S", "x_tm", "x_cm"))
+    return {"phase": "breakdown_rwkv", "config": cfg.name, "rows": B,
+            "prompt_len": Sb, **timed,
+            "wkv_step_ms_per_step": wkv_ms,
+            "wkv_step_share_of_kernel_ms":
+                wkv_ms / timed["profiler_kernel_ms_per_step"],
+            "profiler_top_kernels_ms": [[k[:60], v] for k, v in top],
+            "weight_gb": weight_bytes / 1e9, "state_gb": state_bytes / 1e9,
+            "weight_and_state_bound_ms":
+                (weight_bytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3}
 
 
 # ---------------------------------------------------------------------------
@@ -898,7 +1216,80 @@ def kernel_phase(np, torch, dev, ops, shapes):
     row.update({"equals_ring_bitwise": same_as_ring, "cases": extra,
                 "page_stride": pool_k[:, 0].stride(0)})
     out.append(row)
+    out.append(wkv_kernel_row(np, torch, dev, ops, gen, record,
+                              shapes["rwkv_rows"]))
     return out
+
+
+def wkv_kernel_row(np, torch, dev, ops, gen, record, B):
+    """Kernel 5 at serve_rwkv's largest RWKV decode bucket, ``rwkv6_7b``
+    widths (H 64, P 64): bf16 r/k/v, f32 logw/u/state, the state updated
+    in place as the decode runs it. One step against the plain version
+    (rtol = atol = 1e-4: f32 sums in another order, an FMA in the state
+    update), then 256 chained in-place kernel steps against 256 plain
+    ones at the same tolerance. The library yardstick is a composite (no
+    single PyTorch call computes the step): ``torch.bmm`` for r @ S, an
+    ``addcmul_`` for the bonus term and ``mul_`` / ``addcmul_`` for the
+    state update."""
+    H, P = 64, 64
+    bf = torch.bfloat16
+
+    def inputs():
+        r, k, v = (torch.randn(B, H, P, generator=gen, device=dev).to(bf)
+                   for _ in range(3))
+        logw = -torch.exp(torch.randn(B, H, P, generator=gen, device=dev)
+                          * 0.5 - 1.0)
+        return r, k, v, logw
+
+    r, k, v, logw = inputs()
+    u = torch.randn(H, P, generator=gen, device=dev) * 0.5
+    S = torch.randn(B, H, P, P, generator=gen, device=dev)
+    got_o, got_s = ops.wkv_step(r, k, v, logw, u, S,
+                                out_state=torch.empty_like(S))
+    want_o, want_s = ops.wkv_step_plain(r, k, v, logw, u, S)
+    got = torch.cat([got_o.flatten(), got_s.flatten()])
+    want = torch.cat([want_o.flatten(), want_s.flatten()])
+    # the chain: both start from zeros, each fed the same 256 inputs
+    Sk = torch.zeros(B, H, P, P, device=dev)
+    Sp = torch.zeros_like(Sk)
+    chain_err = 0.0
+    for _ in range(256):
+        args = inputs()
+        ok, _ = ops.wkv_step(*args, u, Sk, out_state=Sk)
+        op, _ = ops.wkv_step_plain(*args, u, Sp, out_state=Sp)
+        chain_err = max(chain_err, (ok - op).abs().max().item())
+        if not torch.allclose(ok, op, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"wkv_step chain: outputs differ by "
+                                 f"{chain_err}")
+    if not torch.allclose(Sk, Sp, rtol=1e-4, atol=1e-4):
+        raise AssertionError("wkv_step chain: states differ by "
+                             f"{(Sk - Sp).abs().max().item()}")
+    chain_state_err = (Sk - Sp).abs().max().item()
+    S1, S2, S3 = S.clone(), S.clone(), S.clone()
+
+    def lib5():
+        rf, kf, vf = r.float(), k.float(), v.float()
+        o = torch.bmm(rf.view(B * H, 1, P), S3.view(B * H, P, P)).view(B, H,
+                                                                       P)
+        o.addcmul_((rf * u * kf).sum(-1, keepdim=True), vf)
+        S3.mul_(torch.exp(logw)[..., None]).addcmul_(kf[..., :, None],
+                                                     vf[..., None, :])
+        return o
+
+    nbytes = 2 * B * H * P * P * 4 + 3 * B * H * P * 2 + B * H * P * 4 \
+        + H * P * 4 + B * H * P * 4
+    row = record(
+        "wkv_step", "src/repro_torch/kernels/csrc/wkv_step.cu",
+        "src/repro/kernels/wkv_step.py:36", got, want, 1e-4, 1e-4,
+        lambda: ops.wkv_step(r, k, v, logw, u, S1, out_state=S1),
+        lambda: ops.wkv_step_plain(r, k, v, logw, u, S2, out_state=S2),
+        lib5, "composite: torch.bmm (r @ S) + addcmul_ (bonus) + mul_/"
+        "addcmul_ (state update)",
+        nbytes, 5 * B * H * P * P + 3 * B * H * P, "float32", [B, H, P])
+    row.update({"chain_steps": 256, "chain_max_abs_err_o": chain_err,
+                "chain_max_abs_err_state": chain_state_err,
+                "in_place": True})
+    return row
 
 
 def _record_decode(core, seen):

@@ -48,6 +48,8 @@ SIGNATURES = {
     # page_stride, dh, window, scale, is_bf16, stream
     "paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _L, _I, _I, _F, _I, _P],
+    # r, k, v, logw, u, state, o, out_state, B, H, P, is_bf16, stream
+    "wkv_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

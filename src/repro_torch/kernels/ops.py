@@ -9,6 +9,7 @@ from .expert_score import (expert_score, expert_score_folded,
                            expert_score_plain, fold_bank)
 from .paged_decode_attention import (paged_decode_attention,
                                      paged_decode_attention_plain)
+from .wkv_step import wkv_step, wkv_step_plain
 
 #: every kernel wrapper of the port, by name
 WRAPPERS = {
@@ -16,6 +17,7 @@ WRAPPERS = {
     "cosine_scores": cosine_scores,
     "decode_attention": decode_attention,
     "paged_decode_attention": paged_decode_attention,
+    "wkv_step": wkv_step,
 }
 
 
@@ -32,4 +34,5 @@ __all__ = ["WRAPPERS", "cosine_scores", "cosine_scores_plain",
            "decode_attention", "decode_attention_plain", "expert_score",
            "expert_score_folded", "expert_score_plain", "fold_bank",
            "launches", "paged_decode_attention",
-           "paged_decode_attention_plain", "reset_launches"]
+           "paged_decode_attention_plain", "reset_launches", "wkv_step",
+           "wkv_step_plain"]

@@ -18,7 +18,6 @@ from .common import ArchConfig
 _LATER = {
     "moe": "A10 (MoE experts)",
     "vlm": "A10 (VLM stub embeds)",
-    "rwkv": "A10 (RWKV6, with the wkv_step kernel)",
     "hybrid": "A10 (Zamba2 hybrid)",
     "encdec": "A10 (encoder-decoder)",
 }
@@ -91,7 +90,7 @@ def register_family(name: str):
 
 
 def build_model(cfg: ArchConfig) -> BaseModel:
-    from . import dense  # noqa: F401  (registration)
+    from . import dense, rwkv6  # noqa: F401  (registration)
     if cfg.family in _LATER:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: it arrives with "

@@ -172,6 +172,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     return (out * scale.float()).to(x.dtype)
 
 
+def groupnorm_heads(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """GroupNorm over the last dim of x (..., H, P): each head on its own.
+    The variance is the population variance (``correction=0``), as the
+    reference's ``jnp.var``; f32 inside, cast back to the input dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

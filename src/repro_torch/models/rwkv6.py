@@ -1,0 +1,287 @@
+"""RWKV6 ("Finch"): attention-free RNN LM with data-dependent decay, the
+serving side of the reference's ``repro.models.rwkv6``.
+
+Time mixing runs the WKV6 recurrence per head (P = head size):
+    o_t[j] = sum_i r_t[i] * (S_t[i,j] + u[i] k_t[i] v_t[j])
+    S_{t+1}[i,j] = exp(logw_t[i]) * S_t[i,j] + k_t[i] v_t[j]
+with logw_t = -exp(w0 + lora(x_t)) and ddlerp token-shift mixing of the
+w/k/v/r/g branch inputs (arXiv:2404.05892).
+
+Prefill evaluates the recurrence over the prompt with plain PyTorch, as
+the reference does with XLA ops outside any Pallas kernel: ``wkv_chunked``
+(chunkwise matmuls, state carried across chunks) when the prompt length
+is a multiple of ``ssm_chunk``, else ``wkv_scan`` (one step per token).
+Decode launches the hand-written ``wkv_step`` kernel once per layer on
+that layer's view of the cached state, which it updates in place; the
+token-shift states are written in place too, so a wave's cache is
+allocated once. The cache is ``{S (L, B, H, P, P) f32, x_tm, x_cm (L, B,
+D) compute dtype, t ()}``: constant-size recurrent state, no K/V, so
+the family serves on the ring layout only.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..kernels.wkv_step import wkv_step, wkv_step_plain
+from .api import BaseModel, register_family
+from .common import (ArchConfig, dense_init, dt, embed_init, groupnorm_heads,
+                     rmsnorm)
+
+N_MIX = 5  # w, k, v, r, g ddlerp branches
+
+
+def _init_layers(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict:
+    """The reference's ``_init_layer`` tree, every leaf stacked on a
+    leading L axis; the mixing, bonus and LoRA-in leaves start at zero and
+    the decay base at -6, as there."""
+    L, D, Fd, R = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.rwkv_lora_dim
+    H, P = cfg.n_heads, cfg.dh
+    dev = gen.device
+    f32 = torch.float32
+
+    def full(shape, value):
+        return torch.full((L,) + shape, value, dtype=f32, device=dev)
+
+    return {
+        "ln1": full((D,), 1.0),
+        "ln2": full((D,), 1.0),
+        "maa_x": full((D,), 0.0),
+        "maa_base": full((N_MIX, D), 0.0),
+        "maa_w1": full((D, N_MIX * R), 0.0),
+        "maa_w2": dense_init(gen, (L, N_MIX, R, D), f32, in_axis=-2),
+        "decay_w0": full((H, P), -6.0),
+        "decay_lora1": dense_init(gen, (L, D, 2 * R), f32),
+        "decay_lora2": dense_init(gen, (L, 2 * R, D), f32),
+        "first_u": full((H, P), 0.0),
+        "w_r": dense_init(gen, (L, D, D), dtype),
+        "w_kk": dense_init(gen, (L, D, D), dtype),
+        "w_vv": dense_init(gen, (L, D, D), dtype),
+        "w_g": dense_init(gen, (L, D, D), dtype),
+        "w_o2": dense_init(gen, (L, D, D), dtype),
+        "g_norm": full((D,), 1.0),
+        "ch_maa_k": full((D,), 0.0),
+        "ch_maa_r": full((D,), 0.0),
+        "w_ch_k": dense_init(gen, (L, D, Fd), dtype),
+        "w_ch_v": dense_init(gen, (L, Fd, D), dtype),
+        "w_ch_r": dense_init(gen, (L, D, D), dtype),
+    }
+
+
+def _layer_views(params) -> List[Dict]:
+    """Per-layer views of the L-stacked layer params."""
+    flat = {k: v.unbind(0) for k, v in params["layers"].items()}
+    return [{k: v[i] for k, v in flat.items()}
+            for i in range(len(flat["ln1"]))]
+
+
+def _shift(x, x_prev):
+    """x: (B, L, D); x_prev: (B, D), the last token of the previous
+    segment."""
+    return torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
+
+
+def _ddlerp(lp, x, xs):
+    """Data-dependent lerp giving the 5 mixed branch inputs, in the order
+    w, k, v, r, g (``maa_base[0]`` is w's)."""
+    dx = xs - x
+    xxx = (x + dx * lp["maa_x"]).to(x.dtype)
+    r = lp["maa_w1"].shape[1] // N_MIX
+    lo = torch.tanh(xxx.float() @ lp["maa_w1"])
+    lo = lo.reshape(x.shape[:-1] + (N_MIX, r))
+    mixes = lp["maa_base"] + torch.einsum("...kr,krd->...kd", lo,
+                                          lp["maa_w2"])
+    out = x[..., None, :] + dx[..., None, :] * mixes.to(x.dtype)
+    return [out[..., i, :] for i in range(N_MIX)]
+
+
+def wkv_scan(r, k, v, logw, u, initial_state=None):
+    """Exact recurrence, one step per token. r/k/v/logw: (B, L, H, P); u:
+    (H, P). Returns (o (B, L, H, P) f32, final state (B, H, P, P) f32)."""
+    B, L, H, P = r.shape
+    S = (torch.zeros((B, H, P, P), dtype=torch.float32, device=r.device)
+         if initial_state is None else initial_state.float())
+    outs = []
+    for t in range(L):
+        o, S = wkv_step_plain(r[:, t], k[:, t], v[:, t], logw[:, t], u, S)
+        outs.append(o)
+    return torch.stack(outs, dim=1), S
+
+
+def wkv_chunked(r, k, v, logw, u, initial_state=None, chunk: int = 32):
+    """Chunkwise WKV6: intra-chunk (Q x Q) products with the per-channel
+    log-space decay factored into r'/k', inter-chunk state carry. Each
+    step's logw is clamped to [-8, -1e-6] (the scan is not), and both
+    factored halves are shifted by the chunk-midpoint cumsum so neither
+    exponent overflows f32 for Q <= 32. A length that is not a multiple of
+    ``chunk`` falls back to ``wkv_scan``."""
+    B, L, H, P = r.shape
+    if L % chunk:
+        return wkv_scan(r, k, v, logw, u, initial_state)
+    nc, Q = L // chunk, chunk
+    f32 = torch.float32
+    rc = r.to(f32).reshape(B, nc, Q, H, P)
+    kc = k.to(f32).reshape(B, nc, Q, H, P)
+    vc = v.to(f32).reshape(B, nc, Q, H, P)
+    wc = logw.to(f32).clamp(-8.0, -1e-6).reshape(B, nc, Q, H, P)
+    cs = torch.cumsum(wc, dim=2)               # inclusive
+    total = cs[:, :, -1]                       # (B, nc, H, P)
+    cs_ex = cs - wc                            # exclusive
+    mid = cs[:, :, Q // 2:Q // 2 + 1]
+    r_dec = rc * torch.exp(cs_ex - mid)
+    k_dec = kc * torch.exp(mid - cs)
+    att = torch.einsum("bcqhp,bcrhp->bcqrh", r_dec, k_dec)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=r.device),
+                     diagonal=-1)              # strictly lower
+    att = att.masked_fill(~tri[None, None, :, :, None], 0.0)
+    o_intra = torch.einsum("bcqrh,bcrhp->bcqhp", att, vc)
+    o_bonus = torch.einsum("bcqhp,bcqhp->bcqh", rc,
+                           u.float() * kc)[..., None] * vc
+    kv_c = torch.einsum("bcqhp,bcqhj->bchpj",
+                        kc * torch.exp(total[:, :, None] - cs), vc)
+    S = (torch.zeros((B, H, P, P), dtype=f32, device=r.device)
+         if initial_state is None else initial_state.to(f32))
+    before = []
+    for c in range(nc):
+        before.append(S)
+        S = torch.exp(total[:, c])[..., None] * S + kv_c[:, c]
+    S_before = torch.stack(before, dim=1)      # (B, nc, H, P, P)
+    o_state = torch.einsum("bcqhp,bchpj->bcqhj", rc * torch.exp(cs_ex),
+                           S_before)
+    o = (o_intra + o_bonus + o_state).reshape(B, L, H, P)
+    return o, S
+
+
+def time_mix(lp, x, cfg: ArchConfig, x_prev, wkv_state, mode: str):
+    """x: (B, L, D) pre-normed. Returns (out, new x_prev, new wkv state).
+    ``mode``: "chunked" over the sequence (``wkv_chunked``, which scans a
+    length that is not a multiple of ``ssm_chunk``), or "step" (L = 1):
+    the ``wkv_step`` kernel, writing the new state over ``wkv_state``."""
+    B, L, D = x.shape
+    H, P = cfg.n_heads, cfg.dh
+    xs = _shift(x, x_prev)
+    xw, xk, xv, xr, xg = _ddlerp(lp, x, xs)
+    r = (xr @ lp["w_r"]).reshape(B, L, H, P)
+    k = (xk @ lp["w_kk"]).reshape(B, L, H, P)
+    v = (xv @ lp["w_vv"]).reshape(B, L, H, P)
+    g = F.silu((xg @ lp["w_g"]).float())
+    lo = torch.tanh(xw.float() @ lp["decay_lora1"]) @ lp["decay_lora2"]
+    w_raw = lp["decay_w0"].reshape(D) + lo
+    logw = -torch.exp(w_raw).reshape(B, L, H, P)
+    if mode == "step":
+        o, S = wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0],
+                        lp["first_u"], wkv_state, out_state=wkv_state)
+        o = o[:, None]
+    else:
+        o, S = wkv_chunked(r, k, v, logw, lp["first_u"], wkv_state,
+                           cfg.ssm_chunk)
+    o = groupnorm_heads(o, torch.ones((H, P), dtype=torch.float32,
+                                      device=x.device))
+    o = o.reshape(B, L, D) * lp["g_norm"] * g
+    out = o.to(x.dtype) @ lp["w_o2"]
+    return out.to(x.dtype), x[:, -1], S
+
+
+def channel_mix(lp, x, x_prev):
+    xs = _shift(x, x_prev)
+    dx = xs - x
+    xk = (x + dx * lp["ch_maa_k"]).to(x.dtype)
+    xr = (x + dx * lp["ch_maa_r"]).to(x.dtype)
+    k = torch.square(torch.relu(xk @ lp["w_ch_k"]))
+    out = torch.sigmoid((xr @ lp["w_ch_r"]).float()).to(x.dtype) \
+        * (k @ lp["w_ch_v"])
+    return out, x[:, -1]
+
+
+def _layer(lp, x, cfg: ArchConfig, state, mode):
+    """state: {S, x_tm, x_cm} views of one layer's cache; the new state is
+    written into them. Returns the new x."""
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    o, x_tm, S = time_mix(lp, h, cfg, state["x_tm"], state["S"], mode)
+    x = x + o
+    h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    o2, x_cm = channel_mix(lp, h2, state["x_cm"])
+    if S is not state["S"]:
+        state["S"].copy_(S)
+    state["x_tm"].copy_(x_tm)
+    state["x_cm"].copy_(x_cm)
+    return x + o2
+
+
+@register_family("rwkv")
+class RWKV6(BaseModel):
+    """RWKV6 LM serving on the ring layout (no paged protocol: the cache
+    is recurrent state, not K/V)."""
+
+    def init(self, generator, device=None):
+        """Params from ``generator`` (a ``torch.Generator`` on the target
+        device, or an int seed for one). Runs on ``cuda`` unless
+        ``device="cpu"``."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        if isinstance(generator, int):
+            generator = torch.Generator(device=dev).manual_seed(generator)
+        if generator.device.type != dev.type:
+            raise ValueError(f"generator on {generator.device}, params "
+                             f"asked for on {dev}")
+        dtype = dt(cfg.param_dtype)
+        return {
+            "embed": embed_init(generator, (cfg.padded_vocab, cfg.d_model),
+                                dtype),
+            "layers": _init_layers(generator, cfg, dtype),
+            "ln_f": torch.ones((cfg.d_model,), dtype=torch.float32,
+                               device=dev),
+            "unembed": dense_init(generator,
+                                  (cfg.d_model, cfg.padded_vocab), dtype),
+        }
+
+    # -- serving --------------------------------------------------------
+    def init_cache(self, batch_size, capacity, device=None):
+        """Zeroed recurrent state for ``batch_size`` rows (``capacity`` is
+        ignored: the state has constant size)."""
+        cfg = self.cfg
+        L, H, P, D = cfg.n_layers, cfg.n_heads, cfg.dh, cfg.d_model
+        cdt = dt(cfg.compute_dtype)
+        B = batch_size
+        return {
+            "S": torch.zeros((L, B, H, P, P), dtype=torch.float32,
+                             device=device),
+            "x_tm": torch.zeros((L, B, D), dtype=cdt, device=device),
+            "x_cm": torch.zeros((L, B, D), dtype=cdt, device=device),
+            "t": torch.zeros((), dtype=torch.int32, device=device),
+        }
+
+    def cache_capacity(self, seq_len):
+        return 1  # constant-size recurrent state
+
+    def _run(self, params, x, cache, mode):
+        for i, lp in enumerate(_layer_views(params)):
+            state = {k: cache[k][i] for k in ("S", "x_tm", "x_cm")}
+            x = _layer(lp, x, self.cfg, state, mode)
+        return rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
+
+    def _unembed(self, params, x):
+        return x @ params["unembed"].to(x.dtype)
+
+    def prefill(self, params, batch, capacity=None):
+        """batch {"tokens": (B, S)} -> (last-position logits (B, Vp), cache
+        {S, x_tm, x_cm, t = S})."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = params["embed"][tokens.long()].to(dt(cfg.compute_dtype))
+        cache = self.init_cache(x.shape[0], 1, device=x.device)
+        x = self._run(params, x, cache, "chunked")
+        cache["t"].fill_(tokens.shape[1])
+        return self._unembed(params, x[:, -1]), cache
+
+    def decode(self, params, cache, batch):
+        """batch {"token": (B, 1)} -> (logits (B, Vp), cache updated in
+        place: every layer's state through ``wkv_step``, t advanced)."""
+        cfg = self.cfg
+        x = params["embed"][batch["token"].long()].to(dt(cfg.compute_dtype))
+        x = self._run(params, x, cache, "step")
+        cache["t"] = cache["t"] + 1
+        return self._unembed(params, x[:, 0]), cache

@@ -4,7 +4,9 @@ expert engine, plus the dispatch executors.
   * ``EngineCore`` serves E >= 1 experts (``E = 1`` behind
     ``ExpertEngine``); wave arrays keep a leading ``E`` axis, as in the
     reference. Admissions snap to (batch bucket, length bucket) shapes.
-  * two KV layouts: ``ring`` gives each wave a dense cache; ``paged``
+  * two KV layouts: ``ring`` gives each wave a cache of its own, in
+    whatever tree the model's ``prefill`` returns (a dense family's K/V
+    ring, a recurrent family's state); ``paged``
     keeps one page pool per engine ``(E, P1, L, page, KV, dh)`` that
     waves address through per-row page tables, with prefix sharing
     (in-wave dedup and a cross-wave prefix cache), copy-on-write before
@@ -185,8 +187,9 @@ class _Wave:
     uids: Dict[int, List[Any]]          # local expert -> row uids
     per_row_new: Dict[int, List[int]]
     done: Dict[int, List[bool]]
-    cache: Any                          # ring: {k, v (E, L, Bb, C, KV,
-    #                                      dh), pos (E, C), t (E,)}
+    cache: Any                          # ring: the model's cache tree,
+    #   each leaf stacked on a leading E axis (dense: {k, v (E, L, Bb, C,
+    #   KV, dh), pos (E, C), t (E,)})
     tok: Optional[torch.Tensor]         # (E, Bb, 1) last sampled token;
     #   None while prefill chunks are still pending (decode is gated)
     emitted: List[Any]                  # (E, Bb) planes, device or host
@@ -219,6 +222,13 @@ class _Wave:
 def _stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """Stack on a new leading axis; one tensor becomes a view, no copy."""
     return xs[0].unsqueeze(0) if len(xs) == 1 else torch.stack(xs)
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of equal structure."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
 
 
 class EngineCore:
@@ -364,8 +374,7 @@ class EngineCore:
                                        capacity=self.max_len)
             logits.append(lg)
             caches.append(c)
-        cache = {k: _stack([c[k] for c in caches])
-                 for k in ("k", "v", "pos", "t")}
+        cache = _tree_map(lambda *leaves: _stack(leaves), *caches)
         return _stack(logits), cache
 
     def _paged_prefill(self, toks: np.ndarray, stbl: np.ndarray
@@ -404,20 +413,30 @@ class EngineCore:
         return _stack(logits)
 
     def _decode(self, cache, tok: torch.Tensor) -> torch.Tensor:
-        """One decode step of a ring wave; the cache is updated in place.
-        Returns logits (E, Bb, V)."""
+        """One decode step of a ring wave over the model's own cache tree
+        (nested dicts of (E, ...) tensors); the cache is updated in place.
+        A leaf the model wrote in place (its expert view comes back) stays
+        as it is; a leaf it returned anew is stacked again. Returns logits
+        (E, Bb, V)."""
         self._decode_shapes.add(tok.shape[1])
-        logits, pos, ts = [], [], []
+        logits, views, outs = [], [], []
         for e in range(self.n_experts):
-            ce = {"k": cache["k"][e], "v": cache["v"][e],
-                  "pos": cache["pos"][e], "t": cache["t"][e]}
-            lg, ce = self.model.decode(self.params[e], ce,
-                                       {"token": tok[e]})
+            ve = _tree_map(lambda a: a[e], cache)
+            # the model may rebind keys of the dict it is given: a copy
+            lg, out = self.model.decode(self.params[e],
+                                        _tree_map(lambda a: a, ve),
+                                        {"token": tok[e]})
             logits.append(lg)
-            pos.append(ce["pos"])
-            ts.append(ce["t"])
-        cache["pos"] = _stack(pos)
-        cache["t"] = _stack(ts)
+            views.append(ve)
+            outs.append(out)
+        E = self.n_experts
+
+        def merge(stacked, *vo):
+            if all(o is v for v, o in zip(vo[:E], vo[E:])):
+                return stacked
+            return _stack(vo[E:])
+
+        cache.update(_tree_map(merge, cache, *views, *outs))
         return _stack(logits)
 
     def _paged_decode(self, w: "_Wave") -> torch.Tensor:

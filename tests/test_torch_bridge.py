@@ -94,3 +94,27 @@ def test_paged_pool_and_table_round_trip():
     back = dict(_leaves(to_numpy(tt)))
     for path, a in _leaves(tree):
         np.testing.assert_array_equal(back[path], _bits(a), err_msg=path)
+
+
+def test_rwkv6_init_tree_matches_reference():
+    """The port's own RWKV6 init draws the reference's tree: the same
+    keys, L-stacked shapes and dtypes (bf16 projections, f32 mixes,
+    decay and norms at the full config's dtypes)."""
+    from repro_torch.configs import get_config as tget
+    from repro_torch.models import build_model as tbuild
+    cfg = get_config("rwkv6_7b").reduced(param_dtype="bfloat16",
+                                         compute_dtype="bfloat16")
+    jp = jax.eval_shape(build_model(cfg).init, jax.random.PRNGKey(0))
+    tp = tbuild(tget("rwkv6_7b").reduced(
+        param_dtype="bfloat16", compute_dtype="bfloat16")).init(
+        torch.Generator().manual_seed(0), device="cpu")
+    want = {p: (tuple(a.shape), str(a.dtype)) for p, a in _leaves(jp)}
+    got = {p: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+           for p, t in _leaves(tp)}
+    assert got == want
+    lay = tp["layers"]
+    for name in ("maa_x", "maa_base", "maa_w1", "first_u", "ch_maa_k",
+                 "ch_maa_r"):
+        assert not lay[name].any(), name
+    assert (lay["decay_w0"] == -6.0).all()
+    assert (lay["ln1"] == 1).all() and (lay["g_norm"] == 1).all()

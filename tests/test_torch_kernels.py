@@ -6,8 +6,10 @@ tests/test_kernels.py runs them) on the same numpy inputs, at the
 tolerances of tests/test_kernels.py: rtol 2e-5 for f32, 2e-2 for bf16.
 The ``cuda`` cases hold each hand-written CUDA kernel to its plain
 version on the card (bf16 decode at 4e-3, about 8x the largest error
-measured on an H100) and skip elsewhere; the paged decode kernel must
-also equal the ring decode kernel on the gathered view bit for bit.
+measured on an H100; the wkv step at 1e-4, f32 sums in another order)
+and skip elsewhere; the paged decode kernel must also equal the ring
+decode kernel on the gathered view bit for bit, and the wkv step gives
+the same bits in place and into a new buffer.
 (The paged kernel's plain version is held to the reference in
 tests/test_torch_paged.py.)
 """
@@ -205,9 +207,12 @@ def test_cpu_calls_take_the_plain_path_and_count_nothing():
     tops.paged_decode_attention(torch.from_numpy(q), pages, pages,
                                 torch.tensor([[1, 0]], dtype=torch.int32),
                                 torch.tensor(t), torch.from_numpy(kv_pos))
+    r, k, v, logw, u, S = (torch.from_numpy(a)
+                           for a in _wkv_inputs(2, 4, 16, seed=0))
+    tops.wkv_step(r, k, v, logw, u, S, out_state=S)
     assert tops.launches() == {"expert_score": 0, "cosine_scores": 0,
                                "decode_attention": 0,
-                               "paged_decode_attention": 0}
+                               "paged_decode_attention": 0, "wkv_step": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -223,6 +228,72 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         tops.paged_decode_attention(q, k[0], k[0], pos[None, :1], pos[0],
                                     pos)
+    r = torch.zeros(1, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        S = torch.zeros(1, 2, 16, 16, device="meta")
+        tops.wkv_step(r, r, r, r, r[0], S, out_state=S)
+
+
+def _wkv_inputs(B, H, P, seed):
+    """r/k/v/logw (B, H, P), u (H, P), state (B, H, P, P), as
+    tests/test_kernels.py draws them (with numpy)."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    r, k, v = (rng.standard_normal((B, H, P)).astype(f) for _ in range(3))
+    logw = -np.exp(rng.standard_normal((B, H, P)) * 0.5).astype(f)
+    u = (rng.standard_normal((H, P)) * 0.2).astype(f)
+    S = rng.standard_normal((B, H, P, P)).astype(f)
+    return r, k, v, logw, u, S
+
+
+@pytest.mark.parametrize("B,H,P,dtype,tol", [
+    (2, 4, 32, "float32", 2e-5), (1, 8, 64, "float32", 2e-5),
+    (4, 2, 16, "float32", 2e-5),
+    (1, 2, 32, "float32", 5e-5), (3, 4, 32, "float32", 5e-5),
+    (2, 8, 32, "float32", 5e-5), (1, 2, 32, "bfloat16", 5e-5),
+    (3, 4, 32, "bfloat16", 5e-5), (2, 8, 32, "bfloat16", 5e-5)])
+def test_wkv_step_plain_matches_reference_kernel(jref, B, H, P, dtype, tol):
+    """The grid and tolerances of tests/test_kernels.py's wkv tests: bf16
+    r/k/v/logw/u are upcast on both sides and the state stays f32, so the
+    outputs agree to f32 rounding."""
+    from repro.kernels.wkv_step import wkv_step_pallas
+    jnp = jref[0]
+    r, k, v, logw, u, S = _wkv_inputs(B, H, P, seed=B * 100 + H + P)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jo, js = wkv_step_pallas(*(jnp.asarray(a).astype(jd)
+                               for a in (r, k, v, logw, u)),
+                             jnp.asarray(S), interpret=True)
+    to, ts = tops.wkv_step_plain(*(torch.from_numpy(a).to(td)
+                                   for a in (r, k, v, logw, u)),
+                                 torch.from_numpy(S))
+    assert to.dtype == ts.dtype == torch.float32
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=tol, atol=tol)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=tol, atol=tol)
+
+
+def test_wkv_step_wrapper_checks_and_aliasing():
+    """The wrapper refuses dtypes the kernel does not take on every
+    device; in place (``out_state=state``) and into a new buffer give the
+    same values."""
+    r, k, v, logw, u, S = (torch.from_numpy(a)
+                           for a in _wkv_inputs(2, 4, 16, seed=1))
+    o1, s1 = tops.wkv_step(r, k, v, logw, u, S,
+                           out_state=torch.empty_like(S))
+    S2 = S.clone()
+    o2, s2 = tops.wkv_step(r, k, v, logw, u, S2, out_state=S2)
+    assert s2 is S2 and s1 is not S
+    torch.testing.assert_close(o1, o2, rtol=0, atol=0)
+    torch.testing.assert_close(s1, s2, rtol=0, atol=0)
+    h = torch.float16
+    for args in ((r.to(h), k.to(h), v.to(h), logw, u, S),
+                 (r, k.bfloat16(), v, logw, u, S),
+                 (r, k, v, logw.bfloat16(), u, S),
+                 (r, k, v, logw, u.double(), S),
+                 (r, k, v, logw, u, S.bfloat16())):
+        with pytest.raises(ValueError, match="wkv_step"):
+            tops.wkv_step(*args, out_state=args[-1])
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tops.wkv_step(r, k, v, logw, u[:1], S, out_state=S)
 
 
 # -- on the card: each CUDA kernel against its plain version --------------
@@ -375,3 +446,61 @@ def test_cuda_paged_decode_attention_refuses_copies(cuda):
     args = _paged_case(cuda, 2, 8, 2, 64, 8, 4, 2, "float32", seed=0, pad=8)
     with pytest.raises(ValueError, match="contiguous"):
         tops.paged_decode_attention(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,P,dtype", [
+    (3, 4, 16, "float32"), (2, 8, 32, "float32"), (2, 4, 64, "float32"),
+    (1, 2, 32, "bfloat16"), (8, 64, 64, "bfloat16"),     # rwkv6_7b decode
+])
+def test_cuda_wkv_step_kernel(cuda, B, H, P, dtype):
+    """Kernel against plain, f32 sums in another order (and an FMA in the
+    state update): rtol = atol = 1e-4. In place and into a new buffer the
+    kernel gives the same bits."""
+    td = getattr(torch, dtype)
+    r, k, v, logw, u, S = (torch.from_numpy(a).to(cuda)
+                           for a in _wkv_inputs(B, H, P, seed=B + H + P))
+    r, k, v = r.to(td), k.to(td), v.to(td)
+    n0 = tops.wkv_step.launches
+    o, s_new = tops.wkv_step(r, k, v, logw, u, S,
+                             out_state=torch.empty_like(S))
+    assert tops.wkv_step.launches == n0 + 1
+    wo, ws = tops.wkv_step_plain(r, k, v, logw, u, S)
+    torch.testing.assert_close(o, wo, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s_new, ws, rtol=1e-4, atol=1e-4)
+    S2 = S.clone()
+    o2, s2 = tops.wkv_step(r, k, v, logw, u, S2, out_state=S2)
+    assert s2 is S2
+    assert torch.equal(o2, o) and torch.equal(S2, s_new)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_step_chain_and_refusals(cuda):
+    """64 chained in-place kernel steps against 64 plain steps, at the
+    decode's tolerance; other head sizes and overlapping buffers raise."""
+    B, H, P = 4, 8, 64
+    rng = np.random.default_rng(2)
+    S = torch.zeros(B, H, P, P, device=cuda)
+    want = S.clone()
+    u = torch.from_numpy(rng.standard_normal((H, P)).astype(np.float32)
+                         * 0.2).to(cuda)
+    for _ in range(64):
+        r, k, v, logw, _, _ = (torch.from_numpy(a).to(cuda)
+                               for a in _wkv_inputs(B, H, P,
+                                                    seed=int(rng.integers(
+                                                        1 << 30))))
+        r, k, v = r.bfloat16(), k.bfloat16(), v.bfloat16()
+        o, _ = tops.wkv_step(r, k, v, logw, u, S, out_state=S)
+        wo, want = tops.wkv_step_plain(r, k, v, logw, u, want)
+        torch.testing.assert_close(o, wo, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(S, want, rtol=1e-4, atol=1e-4)
+    r, k, v, logw, u, S = (torch.from_numpy(a).to(cuda)
+                           for a in _wkv_inputs(1, 2, 48, seed=0))
+    with pytest.raises(ValueError, match="head size"):
+        tops.wkv_step(r, k, v, logw, u, S, out_state=S)
+    r, k, v, logw, u, S = (torch.from_numpy(a).to(cuda)
+                           for a in _wkv_inputs(2, 2, 16, seed=0))
+    big = torch.zeros(2 * S.numel() + 16, device=cuda)
+    with pytest.raises(ValueError, match="overlaps"):
+        tops.wkv_step(r, k, v, logw, u, big[:S.numel()].view_as(S),
+                      out_state=big[16:16 + S.numel()].view_as(S))
