@@ -35,8 +35,8 @@ Phases, each printing one JSON line:
    counters must all move and the pools' books must balance.
 5. breakdown — one wave's decode step at the serve phase's largest batch
    bucket: eager wall time, device time (the step replayed as a CUDA
-   graph), the kernels it launches (``torch.profiler``), and the device's
-   busy share.
+   graph), the kernels it launches (``torch.profiler``), the share of
+   ``decode_attention`` in them, and the device's busy share.
 6. serve_rwkv — a mixed-family server, as the reference's launcher
    builds one: an AE bank of K = 4 in front of two full-width bf16
    ``rwkv6_7b`` engines (random seeded weights, ring, ``max_len`` 256)
@@ -55,7 +55,10 @@ Phases, each printing one JSON line:
    its bound (L2 flushed before every timed launch, as the serving path
    finds it); ``paged_decode_attention`` must also equal
    ``decode_attention`` on the gathered view bit for bit, and 256
-   chained ``wkv_step`` launches must follow 256 plain steps.
+   chained ``wkv_step`` launches must follow 256 plain steps. The two
+   decode rows report their cluster split, shared memory and ptxas
+   registers; the ring row adds a long-ring case (B = 1, 4000 of 4096
+   slots live) beside SDPA.
 
 The reference phase (2) also runs a reduced f32 ``rwkv6_7b`` expert
 (``ssm_chunk`` 16) on the card and on the CPU, through both of its
@@ -695,11 +698,17 @@ def breakdown_phase(np, torch, dev, shapes):
         return model.decode(params, cache, {"token": tok})[0]
 
     timed = step_times(torch, step, n)
-    top = sorted(timed.pop("by_name").items(), key=lambda kv: -kv[1])[:6]
+    by_name = timed.pop("by_name")
+    attn_ms = sum(v for k, v in by_name.items()
+                  if "decode_attention_kernel" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     weight_bytes = sum(t.numel() * t.element_size() for t in
                        _leaves(params))
     return {"phase": "breakdown", "rows": B, "prompt_len": Sb,
             "cache_len": shapes["max_len"], **timed,
+            "decode_attention_ms_per_step": attn_ms,
+            "decode_attention_share_of_kernel_ms":
+                attn_ms / timed["profiler_kernel_ms_per_step"],
             "profiler_top_kernels_ms": [[k[:60], v] for k, v in top],
             "weight_gb": weight_bytes / 1e9,
             "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
@@ -981,6 +990,8 @@ def breakdown_rwkv_phase(np, torch, dev, rshapes):
 def kernel_phase(np, torch, dev, ops, shapes):
     import torch.nn.functional as F
 
+    from repro_torch.kernels import build
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush_buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
                             device=dev)
@@ -1138,14 +1149,21 @@ def kernel_phase(np, torch, dev, ops, shapes):
     amask = ((kv_pos >= 0) & (kv_pos <= t))[None, None, None, :]
     lib3 = step(lambda i: F.scaled_dot_product_attention(
         qs, ks[i], vs[i], attn_mask=amask, enable_gqa=True))
-    out.append(record(
+    row = record(
         "decode_attention",
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:76", got, want, 4e-3, 4e-3,
         kern, plain, lib3,
         "F.scaled_dot_product_attention(enable_gqa=True, bool mask)",
         2 * (2 * B3 * Hq * dh + 2 * B3 * live * KV * dh) + 4 * (S + 1),
-        4 * B3 * Hq * live * dh, "bfloat16", [B3, Hq, KV, dh, S, live]))
+        4 * B3 * Hq * live * dh, "bfloat16", [B3, Hq, KV, dh, S, live])
+    row.update(decode_body(ops, build, "RingAddr", B3, KV, Hq // KV, S, 0,
+                           dh))
+    # a long ring at B = 1: 8 (row, kv head) pairs, so the split fills the
+    # card
+    row["cases"] = {"ring_b1_s4096": long_ring_case(
+        torch, F, ops, gen, dev, record, L, Hq, KV, dh, 4096, 4000)}
+    out.append(row)
 
     # -- kernel 4: paged_decode_attention over one paged decode step's 16
     # layers, at the serve_paged phase's largest decode bucket ----------
@@ -1215,9 +1233,93 @@ def kernel_phase(np, torch, dev, ops, shapes):
         [B4, Hq, KV, dh, page, nlp, P + 1, live4, n_phys])
     row.update({"equals_ring_bitwise": same_as_ring, "cases": extra,
                 "page_stride": pool_k[:, 0].stride(0)})
+    row.update(decode_body(ops, build, "PagedAddr", B4, KV, Hq // KV,
+                           nlp * page, nlp, dh))
     out.append(row)
     out.append(wkv_kernel_row(np, torch, dev, ops, gen, record,
                               shapes["rwkv_rows"]))
+    return out
+
+
+def decode_body(ops, build, addr, B, KV, G, S, n_lp, dh):
+    """The decode kernel's launch shape at these inputs (its cluster
+    split, the dynamic shared memory a block asks for) and what ptxas
+    reported for its bf16 instantiation."""
+    from repro_torch.kernels.decode_attention import sm_count
+    return {"n_split": ops.decode_split(B, KV, S, sm_count(0)),
+            "dynamic_smem_bytes": build.library().decode_attention_smem_bytes(
+                S, n_lp, G, dh, 1),
+            "ptxas": ptxas_report(build.build_log, "decode_attention_kernel",
+                                  "__nv_bfloat16", f"Li{dh}E", addr)}
+
+
+def ptxas_report(log, *needles):
+    """Registers, spills and static shared memory that ``nvcc -Xptxas -v``
+    printed for the entry function whose mangled name holds every
+    needle; None if the log has no such entry."""
+    import re
+    found, cur = None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if all(n in m.group(1) for n in needles) \
+                else None
+            if cur:
+                found = {"entry": cur}
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("static_smem_bytes", r"(\d+) bytes smem"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, line)
+            if m:
+                found[key] = int(m.group(1))
+    return found
+
+
+def long_ring_case(torch, F, ops, gen, dev, record, L, Hq, KV, dh, S, live):
+    """Row 3 on one row of a long ring (``live`` of S slots written, bf16
+    ``llama3_2_1b`` widths), with the plain version and SDPA beside it:
+    at B = 1 the grid without a split has KV blocks."""
+    bf = torch.bfloat16
+    q = torch.randn(1, Hq, dh, generator=gen, device=dev).to(bf)
+    kc = torch.randn(L, 1, S, KV, dh, generator=gen, device=dev).to(bf)
+    vc = torch.randn(L, 1, S, KV, dh, generator=gen, device=dev).to(bf)
+    q_pos = torch.tensor(live - 1, dtype=torch.int32, device=dev)
+    ar = torch.arange(S, dtype=torch.int32, device=dev)
+    kv_pos = torch.where(ar < live, ar, torch.full_like(ar, -1))
+    layer = [0]
+
+    def step(fn):
+        def run():
+            i = layer[0] = (layer[0] + 1) % L
+            return fn(i)
+        return run
+
+    amask = (kv_pos >= 0)[None, None, None, :]
+    ks = [kc[i].transpose(1, 2) for i in range(L)]
+    vs = [vc[i].transpose(1, 2) for i in range(L)]
+    row = record(
+        "decode_attention", "", "",
+        ops.decode_attention(q, kc[0], vc[0], q_pos, kv_pos),
+        ops.decode_attention_plain(q, kc[0], vc[0], q_pos, kv_pos),
+        4e-3, 4e-3,
+        step(lambda i: ops.decode_attention(q, kc[i], vc[i], q_pos, kv_pos)),
+        step(lambda i: ops.decode_attention_plain(q, kc[i], vc[i], q_pos,
+                                                  kv_pos)),
+        step(lambda i: F.scaled_dot_product_attention(
+            q[:, :, None, :], ks[i], vs[i], attn_mask=amask,
+            enable_gqa=True)),
+        "F.scaled_dot_product_attention(enable_gqa=True, bool mask)",
+        2 * (2 * Hq * dh + 2 * live * KV * dh) + 4 * (S + 1),
+        4 * Hq * live * dh, "bfloat16", [1, Hq, KV, dh, S, live])
+    from repro_torch.kernels.decode_attention import sm_count
+    keep = ("max_abs_err", "rtol", "atol", "ms", "ms_runs", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_call", "shape")
+    out = {k: row[k] for k in keep}
+    out["n_split"] = ops.decode_split(1, KV, S, sm_count(0))
     return out
 
 

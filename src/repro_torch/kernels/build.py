@@ -34,20 +34,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
-# C signature of every entry point: (argtypes); all return int (cudaError_t)
+# C signature of every entry point: (argtypes); all return int (a
+# cudaError_t, or bytes for decode_attention_smem_bytes)
 SIGNATURES = {
     # x, w1, b1, w2, b2, out, B, D, H, K, stream
     "expert_score_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # z, centroids, mask, out, B, M, h, eps, stream
     "cosine_scores_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     # q, k, v, q_pos, kv_pos, out, B, H, KV, S, dh, window, scale,
-    # is_bf16, stream
+    # is_bf16, n_split, stream
     "decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _I, _P],
+                         _F, _I, _I, _P],
     # q, k_pages, v_pages, table, q_pos, kv_pos, out, B, H, KV, n_lp, page,
-    # page_stride, dh, window, scale, is_bf16, stream
+    # page_stride, dh, window, scale, is_bf16, n_split, stream
     "paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _L, _I, _I, _F, _I, _P],
+                               _I, _L, _I, _I, _F, _I, _I, _P],
+    # S, n_lp, G, dh, is_bf16 -> dynamic shared memory bytes of one block
+    "decode_attention_smem_bytes": [_I, _I, _I, _I, _I],
     # r, k, v, logw, u, state, o, out_state, B, H, P, is_bf16, stream
     "wkv_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

@@ -15,23 +15,31 @@ Source note:
   KV 8, dh 64, S = max_len 256, B = batch bucket <= 16, bf16): bytes —
   about 1 flop per byte of the live slots' K/V. The main path fills at
   most 79 of the 256 slots (a prompt bucket <= 64 plus 15 decode
-  steps), so at B = 16 it must read 2.6 MB per launch, 0.8 us at
-  3.35 TB/s.
-* Design: one block per (row, kv head) loops over S in 32-key tiles
-  staged once in shared memory for all G query heads, with the online
-  softmax in registers (the TPU grid's sequential S axis becomes that
-  loop); a tile whose slots are all masked is skipped before its K/V is
-  read (bit-for-bit the same result while any slot is live); bf16
-  loads, f32 scores and accumulation, output in q's dtype. Slot order
-  does not matter (positions, not slots, carry the mask).
+  steps), so at B = 8 it must read 1.3 MB per launch, 0.39 us at
+  3.35 TB/s: few enough bytes that memory latency, not bandwidth, sets
+  the kernel's time.
+* Design: the S axis is split over a thread-block cluster of
+  ``decode_split(B, KV, S, n_sm)`` blocks per (row, kv head), so a long
+  cache's tiles spread over the SMs (a 256-slot cache is not split).
+  Each block reads ``kv_pos`` once, keeps one ballot word per 32-slot
+  tile and deals the tiles with a live slot (every tile when none is)
+  over the cluster's ranks; it stages its tiles' K/V in shared memory
+  with 16-byte ``cp.async`` copies, three tiles deep, and runs the
+  online softmax in f32; the ranks combine their partial (m, l, acc)
+  through distributed shared memory in rank order, so the result is
+  deterministic. bf16 or f32 in, f32 scores and accumulation, output in
+  q's dtype. Slot order does not matter (positions, not slots, carry
+  the mask).
 * Measured time: see ``PERF.md`` (``chip_smoke.py`` on the H100).
 
 CUDA source: ``csrc/decode_attention.cu``. On a CPU tensor the wrapper
 runs the plain version (``attention(chunk=0)`` on one query token, as
 the reference oracle has it); on a CUDA tensor it launches the kernel or
-raises.
+raises: q, k and v must start on 16 bytes.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -41,6 +49,41 @@ from .build import check, library
 
 SUPPORTED_DH = (32, 64, 128)
 MAX_GROUP = 16
+MAX_SPLIT = 8           # blocks per cluster (the portable maximum)
+TILE = 32               # slots per tile
+MIN_TILES = 8           # tiles of a full cache each rank must get
+
+
+def decode_split(B: int, KV: int, S: int, n_sm: int) -> int:
+    """Blocks of the cluster that shares one (row, kv head)'s S slots: the
+    smallest power of two n with ``B * KV * n >= n_sm``, capped at
+    ``MAX_SPLIT`` and so that each rank gets at least ``MIN_TILES`` of
+    the ``ceil(S / 32)`` tiles. On an H100 the cluster barrier and the
+    combine cost more than a split of fewer tiles saves (PERF.md), so a
+    256-slot cache is not split. It depends on these four numbers only,
+    so the paged kernel (``S = n_lp * page``) splits as the ring kernel
+    does on the gathered view."""
+    tiles = -(-S // TILE)
+    n = 1
+    while 2 * n <= MAX_SPLIT and 2 * n * MIN_TILES <= tiles \
+            and B * KV * n < n_sm:
+        n *= 2
+    return n
+
+
+@lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def check_aligned(fn: str, **tensors) -> None:
+    """Raise unless every tensor starts on 16 bytes (the kernels copy
+    K/V and load q as 16-byte vectors)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must start on 16 bytes (its "
+                             f"address is {t.data_ptr() % 16} bytes past)")
 
 
 def decode_attention_plain(q, k, v, q_pos, kv_pos, *, window: int = 0
@@ -83,12 +126,14 @@ def decode_attention(q, k, v, q_pos, kv_pos, *, window: int = 0
                 or t.device != q.device:
             raise ValueError(f"decode_attention: {name} must be contiguous "
                              f"int32 on {q.device}")
+    check_aligned("decode_attention", q=q, k=k, v=v)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
     out = torch.empty_like(q)
     rc = library().decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         kv_pos.data_ptr(), out.data_ptr(), B, H, KV, S, dh, int(window),
         scale, int(q.dtype == torch.bfloat16),
+        decode_split(B, KV, S, sm_count(q.device.index)),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(rc, "decode_attention")
     decode_attention.launches += 1

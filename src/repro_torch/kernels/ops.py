@@ -4,7 +4,8 @@ on a CUDA tensor and runs its plain PyTorch version on a CPU tensor;
 each carries a ``launches`` counter that only real kernel launches bump.
 """
 from .cosine_topk import cosine_scores, cosine_scores_plain
-from .decode_attention import decode_attention, decode_attention_plain
+from .decode_attention import (decode_attention, decode_attention_plain,
+                               decode_split)
 from .expert_score import (expert_score, expert_score_folded,
                            expert_score_plain, fold_bank)
 from .paged_decode_attention import (paged_decode_attention,
@@ -31,8 +32,8 @@ def launches() -> dict:
 
 
 __all__ = ["WRAPPERS", "cosine_scores", "cosine_scores_plain",
-           "decode_attention", "decode_attention_plain", "expert_score",
-           "expert_score_folded", "expert_score_plain", "fold_bank",
-           "launches", "paged_decode_attention",
+           "decode_attention", "decode_attention_plain", "decode_split",
+           "expert_score", "expert_score_folded", "expert_score_plain",
+           "fold_bank", "launches", "paged_decode_attention",
            "paged_decode_attention_plain", "reset_launches", "wkv_step",
            "wkv_step_plain"]

@@ -21,23 +21,27 @@ Source note:
   bytes — about 1 flop per byte of the live slots' K/V, plus the table
   and ``kv_pos``.
 * Design: the ring kernel's body, templated on the address of a slot
-  (``csrc/decode_attention.cu``): one block per (row, kv head) loops over
-  the logical slots in 32-slot tiles; before each tile lane j of warp 0
-  looks up slot j's physical page in the row's table, so a page may be
-  smaller or larger than a tile. Dead tiles are skipped before their
-  K/V is read. On the gathered view the result equals
-  ``decode_attention``'s bit for bit.
+  (``csrc/decode_attention.cu``): a cluster of ``decode_split(B, KV,
+  n_lp * page, n_sm)`` blocks per (row, kv head) shares the logical
+  slots' 32-slot tiles. Each block stages its table row in shared memory
+  beside the one pass over ``kv_pos``, so a page may be smaller or
+  larger than a tile and the K/V copies (16-byte ``cp.async``) wait on
+  no further read; only tiles with a live slot are copied. The ranks
+  combine through distributed shared memory. On the gathered view the
+  result equals ``decode_attention``'s bit for bit (same split, tiles,
+  order and arithmetic).
 * Measured time: see ``PERF.md`` (``chip_smoke.py`` on the H100).
 
 Pool contract: ``k_pages``/``v_pages`` are one layer's view
 ``pool[:, i]`` of a ``(P1, L, page, KV, dh)`` pool (the page index
 leading, so one copy-on-write moves a page for every layer). The page
 axis may be strided — the wrapper passes ``stride(0)`` as the page
-stride — but each page's ``(page, KV, dh)`` must be contiguous, and the
-wrapper raises otherwise; it never copies the pool. Physical page
-``P1 - 1`` is the trash page. Table entries must lie in ``[0, P1)``:
-the engine builds them from its page allocator, and the kernel does not
-check them.
+stride — but each page's ``(page, KV, dh)`` must be contiguous, q and
+the pages must start on 16 bytes and the page stride must be a multiple
+of 16 bytes; the wrapper raises otherwise and never copies the pool.
+Physical page ``P1 - 1`` is the trash page. Table entries must lie in
+``[0, P1)``: the engine builds them from its page allocator, and the
+kernel does not check them.
 
 On a CPU tensor the wrapper runs the plain version (``paged_gather``
 followed by ``attention(chunk=0)``, as the reference oracle
@@ -51,7 +55,9 @@ import torch
 
 from ..models.attention import paged_gather
 from .build import check, library
-from .decode_attention import MAX_GROUP, SUPPORTED_DH, decode_attention_plain
+from .decode_attention import (MAX_GROUP, SUPPORTED_DH, check_aligned,
+                               decode_attention_plain, decode_split,
+                               sm_count)
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, table, q_pos, kv_pos,
@@ -112,6 +118,12 @@ def paged_decode_attention(q, k_pages, v_pages, table, q_pos, kv_pos, *,
                 or t.device != q.device:
             raise ValueError(f"paged_decode_attention: {name} must be "
                              f"contiguous int32 on {q.device}")
+    check_aligned("paged_decode_attention", q=q, k_pages=k_pages,
+                  v_pages=v_pages)
+    if page_stride * q.element_size() % 16:
+        raise ValueError(f"paged_decode_attention: the page stride "
+                         f"({page_stride} elements) must be a multiple of "
+                         f"16 bytes")
     scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
     out = torch.empty_like(q)
     rc = library().paged_decode_attention(
@@ -119,6 +131,7 @@ def paged_decode_attention(q, k_pages, v_pages, table, q_pos, kv_pos, *,
         table.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
         out.data_ptr(), B, H, KV, n_lp, page, page_stride,
         dh, int(window), scale, int(q.dtype == torch.bfloat16),
+        decode_split(B, KV, n_lp * page, sm_count(q.device.index)),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1

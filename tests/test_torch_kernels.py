@@ -8,7 +8,8 @@ The ``cuda`` cases hold each hand-written CUDA kernel to its plain
 version on the card (bf16 decode at 4e-3, about 8x the largest error
 measured on an H100; the wkv step at 1e-4, f32 sums in another order)
 and skip elsewhere; the paged decode kernel must also equal the ring
-decode kernel on the gathered view bit for bit, and the wkv step gives
+decode kernel on the gathered view bit for bit, the decode kernel must
+give the same bits twice at every cluster split, and the wkv step gives
 the same bits in place and into a new buffer.
 (The paged kernel's plain version is held to the reference in
 tests/test_torch_paged.py.)
@@ -234,6 +235,50 @@ def test_wrappers_refuse_other_devices():
         tops.wkv_step(r, r, r, r, r[0], S, out_state=S)
 
 
+@pytest.mark.parametrize("B,KV,S,n", [
+    (1, 8, 256, 1), (2, 8, 256, 1), (4, 8, 256, 1), (8, 8, 256, 1),
+    (16, 8, 256, 1),  # the main path: 8 tiles, too few to split
+    (4, 8, 100, 1),   # ragged S: 4 tiles
+    (8, 8, 32, 1),    # one tile
+    (1, 2, 4096, 8),  # a long ring, few (row, kv head) pairs
+    (4, 8, 1000, 4),  # ragged, 32 tiles: 8 per rank
+    (9, 8, 512, 2),
+    (17, 8, 4096, 1),  # 136 blocks fill 132 SMs unsplit
+])
+def test_decode_split_plan(B, KV, S, n):
+    """The planner returns a power of two <= 8 and <= ceil(S / 32), gives
+    each rank at least 8 of a full cache's tiles, takes the smallest
+    split whose B * KV * n blocks reach the SM count unless that cap
+    stops it first, and gives the same split for a ring of S slots and a
+    page table of n_lp * page = S slots."""
+    assert tops.decode_split(B, KV, S, 132) == n      # an H100 SXM
+    for n_sm in (132, 114, 16):
+        n = tops.decode_split(B, KV, S, n_sm)
+        tiles = -(-S // 32)
+        cap = min(8, tiles)
+        assert n >= 1 and n & (n - 1) == 0 and n <= cap
+        assert n == 1 or 8 * n <= tiles
+        if 2 * n <= cap and 16 * n <= tiles:
+            assert B * KV * n >= n_sm
+        assert n == 1 or B * KV * (n // 2) < n_sm
+        for page in (1, 4, 8, 16):
+            if S % page == 0:
+                assert tops.decode_split(B, KV, (S // page) * page,
+                                         n_sm) == n
+
+
+def test_check_aligned_refuses_misaligned_starts():
+    """The decode kernels copy K/V and load q as 16-byte vectors: a
+    tensor that starts off 16 bytes raises before any launch."""
+    from repro_torch.kernels.decode_attention import check_aligned
+    base = torch.zeros(64)
+    check_aligned("decode_attention", q=base[:16], k=base[4:20])
+    with pytest.raises(ValueError, match="k must start on 16 bytes"):
+        check_aligned("decode_attention", q=base[:16], k=base[1:17])
+    with pytest.raises(ValueError, match="v must start on 16 bytes"):
+        check_aligned("decode_attention", v=base.bfloat16()[4:12])
+
+
 def _wkv_inputs(B, H, P, seed):
     """r/k/v/logw (B, H, P), u (H, P), state (B, H, P, P), as
     tests/test_kernels.py draws them (with numpy)."""
@@ -389,6 +434,85 @@ def test_cuda_decode_attention_empty_and_scrambled_ring(cuda):
                               v[:, perm].contiguous(), t, kv_pos[perm],
                               window=64)
     torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def _split_ring(kind, S, seed):
+    """kv_pos (S,) and q_pos of a ring whose live slots are a prefix
+    ("prefix"), one slot ("one": fewer live tiles than ranks), scattered
+    32-slot tiles of a ring scrambled tile by tile and slot by slot
+    ("scrambled"), or none ("empty")."""
+    rng = np.random.default_rng(seed)
+    pos = np.full(S, -1, np.int64)
+    t = S // 3
+    if kind == "prefix":
+        pos[:t + 1] = np.arange(t + 1)
+    elif kind == "one":
+        pos[S // 2 + 5] = t
+    elif kind == "scrambled":
+        tiles = rng.permutation(S // 32)
+        slots = (tiles[:, None] * 32 + rng.permutation(32)).reshape(-1)
+        pos[slots] = np.arange(S)
+    return pos.astype(np.int32), np.int32(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prefix", "one", "scrambled", "empty"])
+@pytest.mark.parametrize("B,H,KV,dh,S,dtype,n", [
+    (17, 8, 8, 32, 256, "float32", 1),       # 8 tiles: no split
+    (9, 32, 8, 64, 512, "bfloat16", 2),
+    (5, 16, 8, 64, 1024, "float32", 4),
+    (1, 8, 2, 128, 2048, "bfloat16", 8),
+    (1, 32, 8, 64, 4096, "bfloat16", 8),     # 16 tiles per rank
+])
+def test_cuda_decode_attention_cluster_split(cuda, B, H, KV, dh, S, dtype, n,
+                                             kind):
+    """Each split the planner gives on an H100 (132 SMs) against the
+    plain version, wherever the live slots sit; two launches give the
+    same bits (the ranks combine in a fixed order)."""
+    from repro_torch.kernels.decode_attention import sm_count
+    assert tops.decode_split(B, KV, S, sm_count(cuda.index)) == n
+    q, k, v, _, _ = _decode_inputs(B, H, KV, dh, S, seed=S + n)
+    kv_pos, t = _split_ring(kind, S, seed=S + B)
+    td = getattr(torch, dtype)
+    args = (torch.from_numpy(q).to(cuda, td), torch.from_numpy(k).to(cuda, td),
+            torch.from_numpy(v).to(cuda, td),
+            torch.tensor(t, device=cuda), torch.from_numpy(kv_pos).to(cuda))
+    got = tops.decode_attention(*args)
+    want = tops.decode_attention_plain(*args)
+    tol = 4e-3 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, tops.decode_attention(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_refuses_misaligned(cuda):
+    """q, k, v or a page pool that starts off 16 bytes, or a page stride
+    that is not a multiple of 16 bytes, raises instead of launching."""
+    B, H, KV, dh, S = 2, 8, 2, 64, 64
+    q = torch.randn(B, H, dh, device=cuda)
+    k = torch.randn(B, S, KV, dh, device=cuda)
+    t = torch.tensor(10, dtype=torch.int32, device=cuda)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda)
+    flat = torch.zeros(k.numel() + 4, device=cuda)
+    off = flat[1:1 + k.numel()].view(k.shape)
+    n0 = tops.decode_attention.launches
+    for args in ((q, off, k), (q, k, off),
+                 (torch.zeros(q.numel() + 4, device=cuda)[2:2 + q.numel()]
+                  .view(q.shape), k, k)):
+        with pytest.raises(ValueError, match="start on 16 bytes"):
+            tops.decode_attention(*args, t, pos)
+    page, P1 = 8, 5
+    tbl = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=cuda)
+    ppos = torch.arange(2 * page, dtype=torch.int32, device=cuda)
+    step = page * KV * dh
+    pool = torch.zeros(P1 * (step + 1) + 4, device=cuda)
+    odd = pool.as_strided((P1, page, KV, dh), (step + 1, KV * dh, dh, 1))
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        tops.paged_decode_attention(q, odd, odd, tbl, t, ppos)
+    shifted = pool[1:1 + P1 * step].view(P1, page, KV, dh)
+    with pytest.raises(ValueError, match="start on 16 bytes"):
+        tops.paged_decode_attention(q, shifted, shifted, tbl, t, ppos)
+    assert tops.decode_attention.launches == n0
 
 
 def _paged_case(cuda, B, H, KV, dh, page, nlp, L, dtype, seed, pad=0):
