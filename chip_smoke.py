@@ -55,17 +55,23 @@ Phases, each printing one JSON line:
    its bound (L2 flushed before every timed launch, as the serving path
    finds it); ``paged_decode_attention`` must also equal
    ``decode_attention`` on the gathered view bit for bit, and 256
-   chained ``wkv_step`` launches must follow 256 plain steps. The two
-   decode rows report their cluster split, shared memory and ptxas
-   registers; the ring row adds a long-ring case (B = 1, 4000 of 4096
-   slots live) beside SDPA.
+   chained ``wkv_step`` launches must follow 256 plain steps, at the
+   serve's bucket and at B = 32. Every row reports its time less the
+   launch floor: a one-element ``add_`` timed the same way. The
+   ``expert_score`` row, at the router's bucket and at B = 64 (two row
+   tiles), reports its cluster plan, the clusters the card holds at
+   once, shared memory and the launch timed at other cluster sizes; the
+   two decode rows their cluster split and shared memory, and those
+   three and ``wkv_step`` the registers and spills ptxas reported; the
+   ring row adds a long-ring case (B = 1, 4000 of 4096 slots live) beside
+   SDPA.
 
 The reference phase (2) also runs a reduced f32 ``rwkv6_7b`` expert
 (``ssm_chunk`` 16) on the card and on the CPU, through both of its
 prefill branches: logits must agree and greedy tokens be equal.
 
-Then a summary line ``{"kernels": [...]}``, the raw ``nvidia-smi`` name
-and power-limit line, and as the last line
+Then a summary line ``{"kernels": [...], "launch_floor_ms": ...}``, the
+raw ``nvidia-smi`` name and power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result, as it does without a CUDA device.
 """
@@ -130,13 +136,15 @@ def main() -> int:
     emit(breakdown_rwkv_phase(np, torch, dev, rshapes))
     shapes["rwkv_rows"] = rshapes["decode_rows"]
     del rshapes                      # the last RWKV expert's weights
-    kernels = kernel_phase(np, torch, dev, ops, shapes)
+    kernels, floor = kernel_phase(np, torch, dev, ops, shapes)
     for k in kernels:
         # each kernel's count from the serial run of the path it serves
         run = {"paged_decode_attention": paged,
                "wkv_step": rwkv}.get(k["name"], serve)
         k["launches"] = run["serial"]["launches"][k["name"]]
-    emit({"kernels": kernels})
+    emit({"kernels": kernels, "launch_floor_ms": min(floor),
+          "launch_floor_ms_runs": floor,
+          "launch_floor_call": "one-element float32 add_, 8 bytes"})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -699,6 +707,7 @@ def breakdown_phase(np, torch, dev, shapes):
 
     timed = step_times(torch, step, n)
     by_name = timed.pop("by_name")
+    del timed["launches_by_name"]
     attn_ms = sum(v for k, v in by_name.items()
                   if "decode_attention_kernel" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -757,16 +766,18 @@ def step_times(torch, step, n):
         torch.cuda.synchronize()
     kern = [ev for ev in prof.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = {}
+    by_name, count = {}, {}
     for ev in kern:
         by_name[ev.name] = by_name.get(ev.name, 0.0) \
             + ev.time_range.elapsed_us() / 3e3
+        count[ev.name] = count.get(ev.name, 0) + 1
     return {"steps_timed": n, "wall_ms_per_step": wall,
             "graph_device_ms_per_step": device,
             "device_busy_share": device / wall,
             "profiler_kernels_per_step": len(kern) / 3,
             "profiler_kernel_ms_per_step": sum(by_name.values()),
-            "by_name": by_name}
+            "by_name": by_name,
+            "launches_by_name": {k: c / 3 for k, c in count.items()}}
 
 
 def _leaves(node):
@@ -966,6 +977,8 @@ def breakdown_rwkv_phase(np, torch, dev, rshapes):
     timed = step_times(torch, step, n)
     by_name = timed.pop("by_name")
     wkv_ms = sum(v for k, v in by_name.items() if "wkv_step" in k)
+    n_wkv = sum(c for k, c in timed.pop("launches_by_name").items()
+                if "wkv_step" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     weight_bytes = sum(t.numel() * t.element_size() for t in
                        _leaves(params))
@@ -974,6 +987,8 @@ def breakdown_rwkv_phase(np, torch, dev, rshapes):
     return {"phase": "breakdown_rwkv", "config": cfg.name, "rows": B,
             "prompt_len": Sb, **timed,
             "wkv_step_ms_per_step": wkv_ms,
+            "wkv_step_launches_per_step": n_wkv,
+            "wkv_step_ms_per_launch": wkv_ms / n_wkv if n_wkv else None,
             "wkv_step_share_of_kernel_ms":
                 wkv_ms / timed["profiler_kernel_ms_per_step"],
             "profiler_top_kernels_ms": [[k[:60], v] for k, v in top],
@@ -1060,38 +1075,22 @@ def kernel_phase(np, torch, dev, ops, shapes):
                 "library_call": library_call, "shape": shape,
                 "l2": "flushed before every call"}
 
+    # the launch floor: the least a flushed launch reads here
+    one = torch.zeros(1, device=dev)
+    floor = [device_ms(lambda: one.add_(1))]
     out = []
 
-    # -- kernel 1: expert_score at the router's row bucket ---------------
-    B, K, D, H = shapes["route_rows"], 6, 784, 128
-    bp = {"w_enc": torch.randn(K, D, H, generator=gen, device=dev) * 0.03,
-          "b_enc": torch.randn(K, H, generator=gen, device=dev) * 0.01,
-          "bn_scale": 1 + torch.randn(K, H, generator=gen, device=dev) * 0.1,
-          "bn_bias": torch.randn(K, H, generator=gen, device=dev) * 0.05,
-          "w_dec": torch.randn(K, H, D, generator=gen, device=dev) * 0.03,
-          "b_dec": torch.randn(K, D, generator=gen, device=dev) * 0.01}
-    bs = {"mean": torch.randn(K, H, generator=gen, device=dev) * 0.1,
-          "var": 1 + torch.rand(K, H, generator=gen, device=dev)}
-    folded = ops.fold_bank(bp, bs)
-    x = torch.rand(B, D, generator=gen, device=dev)
-    got = ops.expert_score_folded(folded, x)
-    want = ops.expert_score_plain(folded, x)
-    xk = x.expand(K, B, D)
-
-    def lib1():
-        h = torch.baddbmm(folded["b1"][:, None, :], xk, folded["w1"])
-        xhat = torch.baddbmm(folded["b2"][:, None, :], h.relu_(),
-                             folded["w2"])
-        return (xhat - x).square_().sum(-1).div_(D).T
-
-    out.append(record(
-        "expert_score", "src/repro_torch/kernels/csrc/expert_score.cu",
-        "src/repro/kernels/expert_score.py:39", got, want, 2e-5, 1e-6,
-        lambda: ops.expert_score_folded(folded, x),
-        lambda: ops.expert_score_plain(folded, x), lib1,
-        "torch.baddbmm x2 + square/sum", 4 * (B * D + K * (2 * D * H + H + D)
-                                              + B * K),
-        2 * B * K * 2 * D * H, "float32", [B, K, D, H]))
+    # -- kernel 1: expert_score at the router's row bucket, and at B = 64,
+    # where two row tiles make 12 clusters that the plan keeps in one wave
+    row = expert_kernel_row(torch, dev, ops, build, gen, record, device_ms,
+                            shapes["route_rows"])
+    row["ptxas"] = ptxas_report(build.build_log, "expert_score_kernel")
+    wide = expert_kernel_row(torch, dev, ops, build, gen, record, device_ms,
+                             64)
+    row["cases"] = {"b64": {k: wide[k] for k in (
+        "max_abs_err", "rtol", "atol", "ms", "ms_runs", "plain_ms",
+        "bound_ms", "bound_by", "library_ms", "shape", "plan")}}
+    out.append(row)
 
     # -- kernel 2: cosine_scores at the largest routed group's bucket ----
     B2, M, h = shapes["group_rows"], shapes["n_classes"], 128
@@ -1236,16 +1235,101 @@ def kernel_phase(np, torch, dev, ops, shapes):
     row.update(decode_body(ops, build, "PagedAddr", B4, KV, Hq // KV,
                            nlp * page, nlp, dh))
     out.append(row)
-    out.append(wkv_kernel_row(np, torch, dev, ops, gen, record,
-                              shapes["rwkv_rows"]))
-    return out
+    row = wkv_kernel_row(torch, dev, ops, gen, record, shapes["rwkv_rows"])
+    row["ptxas"] = ptxas_report(build.build_log, "wkv_step_kernel",
+                                "__nv_bfloat16", "Li64E")
+    big = wkv_kernel_row(torch, dev, ops, gen, record, 32)
+    row["cases"] = {"b32": {k: big[k] for k in (
+        "max_abs_err", "rtol", "atol", "ms", "ms_runs", "plain_ms",
+        "bound_ms", "bound_by", "library_ms", "shape", "chain_steps",
+        "chain_max_abs_err_o", "chain_max_abs_err_state")}}
+    out.append(row)
+    floor.append(device_ms(lambda: one.add_(1)))
+    for r in out:
+        for c in (r, *r.get("cases", {}).values()):
+            if "ms" in c:
+                c["ms_minus_floor"] = c["ms"] - min(floor)
+    return out, floor
+
+
+def expert_kernel_row(torch, dev, ops, build, gen, record, device_ms, B):
+    """Kernel 1 at B rows, the router's bank widths (K 6, D 784, H 128),
+    against the plain version at rtol 2e-5, atol 1e-6, two launches
+    bit-equal, with the planner's launch shape. ``plan.ms_by_n`` times
+    the same launch at the planned cluster size and at 8, 11 and 16
+    blocks (through the C entry, uncounted): the evidence that the
+    largest size whose clusters are all resident at once is the fastest."""
+    from repro_torch.kernels.expert_score import max_clusters
+    K, D, H = 6, 784, 128
+    bp = {"w_enc": torch.randn(K, D, H, generator=gen, device=dev) * 0.03,
+          "b_enc": torch.randn(K, H, generator=gen, device=dev) * 0.01,
+          "bn_scale": 1 + torch.randn(K, H, generator=gen, device=dev) * 0.1,
+          "bn_bias": torch.randn(K, H, generator=gen, device=dev) * 0.05,
+          "w_dec": torch.randn(K, H, D, generator=gen, device=dev) * 0.03,
+          "b_dec": torch.randn(K, D, generator=gen, device=dev) * 0.01}
+    bs = {"mean": torch.randn(K, H, generator=gen, device=dev) * 0.1,
+          "var": 1 + torch.rand(K, H, generator=gen, device=dev)}
+    folded = ops.fold_bank(bp, bs)
+    x = torch.rand(B, D, generator=gen, device=dev)
+    got = ops.expert_score_folded(folded, x)
+    want = ops.expert_score_plain(folded, x)
+    xk = x.expand(K, B, D)
+
+    def lib1():
+        h = torch.baddbmm(folded["b1"][:, None, :], xk, folded["w1"])
+        xhat = torch.baddbmm(folded["b2"][:, None, :], h.relu_(),
+                             folded["w2"])
+        return (xhat - x).square_().sum(-1).div_(D).T
+
+    row = record(
+        "expert_score", "src/repro_torch/kernels/csrc/expert_score.cu",
+        "src/repro/kernels/expert_score.py:39", got, want, 2e-5, 1e-6,
+        lambda: ops.expert_score_folded(folded, x),
+        lambda: ops.expert_score_plain(folded, x), lib1,
+        "torch.baddbmm x2 + square/sum", 4 * (B * D + K * (2 * D * H + H + D)
+                                              + B * K),
+        2 * B * K * 2 * D * H, "float32", [B, K, D, H])
+    if not torch.equal(got, ops.expert_score_folded(folded, x)):
+        raise AssertionError(f"expert_score B={B}: two launches differ")
+
+    lib = build.library()
+
+    def active(m, r):
+        return max_clusters(torch.cuda.current_device(), D, H, m, r)
+
+    n, rows = ops.expert_split(B, D, H, K, active)
+    tiles = -(-B // rows)
+
+    def at(m):
+        res = torch.empty_like(got)
+
+        def call():
+            build.check(lib.expert_score_f32(
+                x.data_ptr(), folded["w1"].data_ptr(),
+                folded["b1"].data_ptr(), folded["w2"].data_ptr(),
+                folded["b2"].data_ptr(), res.data_ptr(), B, D, H, K, m,
+                rows, torch.cuda.current_stream().cuda_stream),
+                "expert_score")
+        call()
+        if not torch.allclose(res, want, rtol=2e-5, atol=1e-6):
+            raise AssertionError(f"expert_score B={B} n={m}: off the plain")
+        return device_ms(call)
+
+    row.update({"bit_equal_launches": True, "plan": {
+        "n_rank": n, "rows": rows, "blocks": n * tiles * K,
+        "clusters": tiles * K, "active_clusters": active(n, rows),
+        "active_clusters_by_n": {m: active(m, rows) for m in range(7, 17)},
+        "slices": ops.expert_slices(D, n),
+        "dynamic_smem_bytes": lib.expert_score_smem_bytes(D, H, n, rows),
+        "ms_by_n": {m: at(m) for m in sorted({n, 8, 11, 16})}}})
+    return row
 
 
 def decode_body(ops, build, addr, B, KV, G, S, n_lp, dh):
     """The decode kernel's launch shape at these inputs (its cluster
     split, the dynamic shared memory a block asks for) and what ptxas
     reported for its bf16 instantiation."""
-    from repro_torch.kernels.decode_attention import sm_count
+    from repro_torch.kernels.build import sm_count
     return {"n_split": ops.decode_split(B, KV, S, sm_count(0)),
             "dynamic_smem_bytes": build.library().decode_attention_smem_bytes(
                 S, n_lp, G, dh, 1),
@@ -1315,7 +1399,7 @@ def long_ring_case(torch, F, ops, gen, dev, record, L, Hq, KV, dh, S, live):
         "F.scaled_dot_product_attention(enable_gqa=True, bool mask)",
         2 * (2 * Hq * dh + 2 * live * KV * dh) + 4 * (S + 1),
         4 * Hq * live * dh, "bfloat16", [1, Hq, KV, dh, S, live])
-    from repro_torch.kernels.decode_attention import sm_count
+    from repro_torch.kernels.build import sm_count
     keep = ("max_abs_err", "rtol", "atol", "ms", "ms_runs", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_call", "shape")
     out = {k: row[k] for k in keep}
@@ -1323,13 +1407,14 @@ def long_ring_case(torch, F, ops, gen, dev, record, L, Hq, KV, dh, S, live):
     return out
 
 
-def wkv_kernel_row(np, torch, dev, ops, gen, record, B):
-    """Kernel 5 at serve_rwkv's largest RWKV decode bucket, ``rwkv6_7b``
-    widths (H 64, P 64): bf16 r/k/v, f32 logw/u/state, the state updated
-    in place as the decode runs it. One step against the plain version
-    (rtol = atol = 1e-4: f32 sums in another order, an FMA in the state
-    update), then 256 chained in-place kernel steps against 256 plain
-    ones at the same tolerance. The library yardstick is a composite (no
+def wkv_kernel_row(torch, dev, ops, gen, record, B):
+    """Kernel 5 at B rows (serve_rwkv's largest RWKV decode bucket, and
+    32), ``rwkv6_7b`` widths (H 64, P 64): bf16 r/k/v, f32 logw/u/state,
+    the state updated in place as the decode runs it. One step against
+    the plain version (rtol = atol = 1e-4: f32 sums in another order, an
+    FMA in the state update; two launches must give the same bits), then
+    256 chained in-place kernel steps against 256 plain ones at the same
+    tolerance. The library yardstick is a composite (no
     single PyTorch call computes the step): ``torch.bmm`` for r @ S, an
     ``addcmul_`` for the bonus term and ``mul_`` / ``addcmul_`` for the
     state update."""
@@ -1349,6 +1434,9 @@ def wkv_kernel_row(np, torch, dev, ops, gen, record, B):
     got_o, got_s = ops.wkv_step(r, k, v, logw, u, S,
                                 out_state=torch.empty_like(S))
     want_o, want_s = ops.wkv_step_plain(r, k, v, logw, u, S)
+    again = ops.wkv_step(r, k, v, logw, u, S, out_state=torch.empty_like(S))
+    if not (torch.equal(again[0], got_o) and torch.equal(again[1], got_s)):
+        raise AssertionError(f"wkv_step B={B}: two launches differ")
     got = torch.cat([got_o.flatten(), got_s.flatten()])
     want = torch.cat([want_o.flatten(), want_s.flatten()])
     # the chain: both start from zeros, each fed the same 256 inputs
@@ -1361,10 +1449,10 @@ def wkv_kernel_row(np, torch, dev, ops, gen, record, B):
         op, _ = ops.wkv_step_plain(*args, u, Sp, out_state=Sp)
         chain_err = max(chain_err, (ok - op).abs().max().item())
         if not torch.allclose(ok, op, rtol=1e-4, atol=1e-4):
-            raise AssertionError(f"wkv_step chain: outputs differ by "
-                                 f"{chain_err}")
+            raise AssertionError(f"wkv_step B={B} chain: outputs differ "
+                                 f"by {chain_err}")
     if not torch.allclose(Sk, Sp, rtol=1e-4, atol=1e-4):
-        raise AssertionError("wkv_step chain: states differ by "
+        raise AssertionError(f"wkv_step B={B} chain: states differ by "
                              f"{(Sk - Sp).abs().max().item()}")
     chain_state_err = (Sk - Sp).abs().max().item()
     S1, S2, S3 = S.clone(), S.clone(), S.clone()
@@ -1390,7 +1478,7 @@ def wkv_kernel_row(np, torch, dev, ops, gen, record, B):
         nbytes, 5 * B * H * P * P + 3 * B * H * P, "float32", [B, H, P])
     row.update({"chain_steps": 256, "chain_max_abs_err_o": chain_err,
                 "chain_max_abs_err_state": chain_state_err,
-                "in_place": True})
+                "in_place": True, "bit_equal_launches": True})
     return row
 
 

@@ -20,8 +20,11 @@ import shutil
 import subprocess
 import tempfile
 import time
+from functools import lru_cache
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -35,10 +38,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C signature of every entry point: (argtypes); all return int (a
-# cudaError_t, or bytes for decode_attention_smem_bytes)
+# cudaError_t, bytes for the *_smem_bytes entries, a count for
+# expert_score_max_clusters)
 SIGNATURES = {
-    # x, w1, b1, w2, b2, out, B, D, H, K, stream
-    "expert_score_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w1, b1, w2, b2, out, B, D, H, K, n_rank, rows, stream
+    "expert_score_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P],
+    # D, H, n_rank, rows -> dynamic shared memory bytes of one block
+    "expert_score_smem_bytes": [_I, _I, _I, _I],
+    # D, H, n_rank, rows -> clusters of n_rank blocks resident at once
+    "expert_score_max_clusters": [_I, _I, _I, _I],
     # z, centroids, mask, out, B, M, h, eps, stream
     "cosine_scores_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     # q, k, v, q_pos, kv_pos, out, B, H, KV, S, dh, window, scale,
@@ -156,3 +165,18 @@ def check(rc: int, name: str) -> None:
     """Raise if a kernel entry returned a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+@lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def check_aligned(fn: str, **tensors) -> None:
+    """Raise unless every tensor starts on 16 bytes (the kernels move
+    these tensors as 16-byte vectors or copies)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must start on 16 bytes (its "
+                             f"address is {t.data_ptr() % 16} bytes past)")

@@ -39,13 +39,11 @@ raises: q, k and v must start on 16 bytes.
 """
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
 from ..models.attention import attention
-from .build import check, library
+from .build import check, check_aligned, library, sm_count
 
 SUPPORTED_DH = (32, 64, 128)
 MAX_GROUP = 16
@@ -69,21 +67,6 @@ def decode_split(B: int, KV: int, S: int, n_sm: int) -> int:
             and B * KV * n < n_sm:
         n *= 2
     return n
-
-
-@lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA device ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def check_aligned(fn: str, **tensors) -> None:
-    """Raise unless every tensor starts on 16 bytes (the kernels copy
-    K/V and load q as 16-byte vectors)."""
-    for name, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{fn}: {name} must start on 16 bytes (its "
-                             f"address is {t.data_ptr() % 16} bytes past)")
 
 
 def decode_attention_plain(q, k, v, q_pos, kv_pos, *, window: int = 0

@@ -7,7 +7,8 @@ from .cosine_topk import cosine_scores, cosine_scores_plain
 from .decode_attention import (decode_attention, decode_attention_plain,
                                decode_split)
 from .expert_score import (expert_score, expert_score_folded,
-                           expert_score_plain, fold_bank)
+                           expert_score_plain, expert_slices, expert_split,
+                           fold_bank)
 from .paged_decode_attention import (paged_decode_attention,
                                      paged_decode_attention_plain)
 from .wkv_step import wkv_step, wkv_step_plain
@@ -34,6 +35,6 @@ def launches() -> dict:
 __all__ = ["WRAPPERS", "cosine_scores", "cosine_scores_plain",
            "decode_attention", "decode_attention_plain", "decode_split",
            "expert_score", "expert_score_folded", "expert_score_plain",
-           "fold_bank", "launches", "paged_decode_attention",
-           "paged_decode_attention_plain", "reset_launches", "wkv_step",
-           "wkv_step_plain"]
+           "expert_slices", "expert_split", "fold_bank", "launches",
+           "paged_decode_attention", "paged_decode_attention_plain",
+           "reset_launches", "wkv_step", "wkv_step_plain"]

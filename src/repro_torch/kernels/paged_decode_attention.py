@@ -54,10 +54,9 @@ import numpy as np
 import torch
 
 from ..models.attention import paged_gather
-from .build import check, library
-from .decode_attention import (MAX_GROUP, SUPPORTED_DH, check_aligned,
-                               decode_attention_plain, decode_split,
-                               sm_count)
+from .build import check, check_aligned, library, sm_count
+from .decode_attention import (MAX_GROUP, SUPPORTED_DH,
+                               decode_attention_plain, decode_split)
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, table, q_pos, kv_pos,

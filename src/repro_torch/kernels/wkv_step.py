@@ -13,14 +13,19 @@ Source note:
 * Bound on the H100 at the serving shapes (``rwkv6_7b``: H 64, P 64, f32
   state, bf16 r/k/v, B = decode bucket): bytes. The (B, H, P, P) state
   must be read and written once, 2.1 MB a row, for about 5 flops per
-  state element: at B = 8, 17.3 MB in all, 5.2 us at 3.35 TB/s.
-* Design: one block of 256 threads per (row, head) makes one pass over
-  the state tile: each thread reads its elements of S once, coalesced
-  along the column, keeps its share of ``r @ S`` in a register and writes
-  S' back at once; one shared-memory pass adds the partial sums and the
-  bonus term ``(r . (u * k)) v``. The new state may be written over the
-  old (``out_state=state``), which saves a second state buffer on every
-  layer of every step.
+  state element: 8.6 MB and 2.58 us at 3.35 TB/s at B = 4 (the serving
+  bucket), 67 MB and 20.6 us at B = 32.
+* Design: one block of 4P threads per (row, head) makes one pass over
+  the state tile and one round trip to device memory: its first
+  instructions issue every thread's state loads (16-byte vectors, whole
+  rows per warp) together with r, k, v, logw and ``u``, so one barrier
+  waits for all of them. Each thread keeps its share of ``r @ S`` in
+  registers and writes S' back at once as 16-byte vectors; the partial
+  sums are added in a fixed order (a shuffle butterfly, then warp
+  order), so two launches give the same bits. The new state may be
+  written over the old (``out_state=state``), which saves a second
+  state buffer on every layer of every step. ``state`` and
+  ``out_state`` must start on 16 bytes (the wrapper raises otherwise).
 * Measured time: see ``PERF.md`` (``chip_smoke.py`` on the H100).
 
 CUDA source: ``csrc/wkv_step.cu``. On a CPU tensor the wrapper runs the
@@ -33,7 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import check, library
+from .build import check, check_aligned, library
 
 SUPPORTED_P = (16, 32, 64)
 
@@ -97,6 +102,7 @@ def wkv_step(r, k, v, logw, u, state, out_state: torch.Tensor
         if not t.is_contiguous() or t.device != r.device:
             raise ValueError(f"wkv_step: {name} must be contiguous on "
                              f"{r.device}")
+    check_aligned("wkv_step", state=state, out_state=out_state)
     a, b = state.data_ptr(), out_state.data_ptr()
     n = state.numel() * state.element_size()
     if a != b and a < b + n and b < a + n:

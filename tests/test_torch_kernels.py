@@ -9,8 +9,9 @@ version on the card (bf16 decode at 4e-3, about 8x the largest error
 measured on an H100; the wkv step at 1e-4, f32 sums in another order)
 and skip elsewhere; the paged decode kernel must also equal the ring
 decode kernel on the gathered view bit for bit, the decode kernel must
-give the same bits twice at every cluster split, and the wkv step gives
-the same bits in place and into a new buffer.
+give the same bits twice at every cluster split, the wkv step gives
+the same bits in place and into a new buffer, and the expert score the
+same bits twice, ragged row tiles and unaligned D included.
 (The paged kernel's plain version is held to the reference in
 tests/test_torch_paged.py.)
 """
@@ -105,6 +106,74 @@ def test_expert_score_identity_bn_default():
     torch.testing.assert_close(tops.expert_score(_t(params), x),
                                tops.expert_score(_t(params), x, ident),
                                rtol=0, atol=0)
+
+
+def _gpc_clusters(*gpcs):
+    """Clusters of n blocks resident at once on a card whose GPCs hold
+    these SM counts, one block per SM: a cluster lives in one GPC."""
+    return lambda n, rows: sum(g // n for g in gpcs)
+
+
+# cudaOccupancyMaxActiveClusters for this kernel on an H100 SXM (132
+# SMs, one block per SM) at 7 to 16 blocks a cluster, as chip_smoke.py
+# reads it; smaller clusters as on 8 GPCs of 16 SMs
+H100_ACTIVE = {7: 15, 8: 15, 9: 9, 10: 7, 11: 7, 12: 7, 13: 7, 14: 7,
+               15: 7, 16: 7}
+
+
+def h100_active(n, rows):
+    return H100_ACTIVE.get(n, 8 * (16 // n))
+
+
+@pytest.mark.parametrize("B,D,H,K,n,rows", [
+    (32, 784, 128, 6, 16, 32),   # the router bucket: 96 blocks
+    (32, 784, 128, 4, 16, 32),   # serve_rwkv's bank
+    (1, 784, 128, 6, 16, 1),
+    (33, 784, 128, 6, 8, 17),    # a ragged pair of row tiles
+    (64, 784, 128, 6, 8, 32),    # 12 clusters: 16 or 11 blocks is 2 waves
+    (33, 98, 128, 6, 8, 17),     # rows that do not start on 16 bytes
+    (128, 512, 64, 10, 3, 32),
+    (16, 100, 32, 3, 16, 16),
+    (256, 100, 32, 3, 5, 32),
+    (4, 6, 8, 2, 2, 4),          # fewer column groups than ranks allowed
+    (32, 784, 256, 20, 13, 32),  # wide h: the slice cap, not one wave
+])
+def test_expert_split_plan(B, D, H, K, n, rows):
+    """The cluster size and row tile of the expert score: every row and
+    column is covered once, every slice starts on a 16-byte column group
+    and holds at most SLICE_FLOATS of W1, a rank never gets an empty
+    slice, and the K x tiles clusters are all resident at once (one
+    wave) unless no allowed size makes them so; n is the largest such
+    size, or else the smallest allowed."""
+    from repro_torch.kernels.expert_score import (MAX_RANKS, MAX_ROWS,
+                                                  SLICE_FLOATS)
+    assert tops.expert_split(B, D, H, K, h100_active) == (n, rows)
+    for active in (h100_active, _gpc_clusters(*(16,) * 7, 2),
+                   _gpc_clusters(16)):
+        n, rows = tops.expert_split(B, D, H, K, active)
+        tiles = -(-B // rows)
+        assert 1 <= rows <= MAX_ROWS and (tiles - 1) * rows < B
+        assert tiles == -(-B // MAX_ROWS)
+        sl = tops.expert_slices(D, n)
+        assert len(sl) == n and sl[0][0] == 0 and sl[-1][1] == D
+        assert all(a[1] == b[0] for a, b in zip(sl, sl[1:]))
+        assert all(d0 % 4 == 0 and d1 > d0 for d0, d1 in sl)
+        assert all(d1 % 4 == 0 for _, d1 in sl[:-1])
+        widest = max(-(-(d1 - d0) // 4) * 4 for d0, d1 in sl)
+        groups = -(-D // 4)
+        hp = -(-H // 4) * 4
+        assert 1 <= n <= min(MAX_RANKS, groups)
+        fits = widest * hp <= SLICE_FLOATS
+        assert fits or n == min(MAX_RANKS, groups)
+        cap = min(MAX_RANKS, groups)
+        if K * tiles > active(n, rows):    # more than one wave: forced
+            assert all(K * tiles > active(m, rows)
+                       for m in range(n + 1, cap + 1))
+            assert n == 1 or not all(
+                -(-(d1 - d0) // 4) * 4 * hp <= SLICE_FLOATS
+                for d0, d1 in tops.expert_slices(D, n - 1))
+        elif n < cap:                      # the largest one-wave cluster
+            assert K * tiles > active(n + 1, rows)
 
 
 @pytest.mark.parametrize("B,M,h", [(32, 10, 128), (64, 3, 64), (16, 17, 32)])
@@ -270,7 +339,7 @@ def test_decode_split_plan(B, KV, S, n):
 def test_check_aligned_refuses_misaligned_starts():
     """The decode kernels copy K/V and load q as 16-byte vectors: a
     tensor that starts off 16 bytes raises before any launch."""
-    from repro_torch.kernels.decode_attention import check_aligned
+    from repro_torch.kernels.build import check_aligned
     base = torch.zeros(64)
     check_aligned("decode_attention", q=base[:16], k=base[4:20])
     with pytest.raises(ValueError, match="k must start on 16 bytes"):
@@ -355,6 +424,56 @@ def test_cuda_expert_score_kernel(cuda, B, D, H, K):
     assert tops.expert_score_folded.launches == n0 + 1
     want = tops.expert_score_plain(folded, x)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,H,K,offset", [
+    (1, 784, 128, 6, 0),      # one row
+    (33, 784, 128, 6, 0),     # two row tiles, the second of 16 rows
+    (33, 98, 128, 6, 0),      # x / W2 rows off 16 bytes: 4-byte copies
+    (32, 784, 128, 6, 1),     # x itself starts 4 bytes past 16
+    (5, 98, 30, 4, 0),        # H not a multiple of 4: 4-byte W1 copies
+])
+def test_cuda_expert_score_ragged_and_unaligned(cuda, B, D, H, K, offset):
+    """Ragged row tiles and slices, and rows or tensors that do not start
+    on 16 bytes, go through the kernel (never the plain version) and
+    agree with the plain version; two launches give the same bits."""
+    params, states = _bank(K, D, H, seed=B + D)
+    folded = tops.fold_bank(_t(params, cuda), _t(states, cuda))
+    flat = torch.rand(B * D + 4, device=cuda)
+    x = flat[offset:offset + B * D].view(B, D)
+    n0 = tops.expert_score_folded.launches
+    got = tops.expert_score_folded(folded, x)
+    assert tops.expert_score_folded.launches == n0 + 1
+    torch.testing.assert_close(got, tops.expert_score_plain(folded, x),
+                               rtol=2e-5, atol=1e-6)
+    assert torch.equal(got, tops.expert_score_folded(folded, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K", [(32, 6), (32, 8), (64, 6), (64, 4)])
+def test_cuda_expert_split_fits_one_wave(cuda, B, K):
+    """On the card the planner reads the occupancy query: the K x tiles
+    clusters it plans are all resident at once, one more block per
+    cluster would not keep them so, and fewer blocks per cluster never
+    fit fewer clusters; the launch agrees with the plain version."""
+    from repro_torch.kernels.expert_score import MAX_RANKS, max_clusters
+    D, H = 784, 128
+    n, rows = tops.expert_split(
+        B, D, H, K, lambda n, r: max_clusters(cuda.index, D, H, n, r))
+    active = [max_clusters(cuda.index, D, H, m, rows)
+              for m in range(7, MAX_RANKS + 1)]
+    assert all(a >= b for a, b in zip(active, active[1:]))
+    tiles = -(-B // rows)
+    assert K * tiles <= max_clusters(cuda.index, D, H, n, rows)
+    if n < MAX_RANKS:
+        assert K * tiles > max_clusters(cuda.index, D, H, n + 1, rows)
+    params, states = _bank(K, D, H, seed=B * K)
+    folded = tops.fold_bank(_t(params, cuda), _t(states, cuda))
+    x = torch.rand(B, D, device=cuda)
+    torch.testing.assert_close(tops.expert_score_folded(folded, x),
+                               tops.expert_score_plain(folded, x),
+                               rtol=2e-5, atol=1e-6)
 
 
 @pytest.mark.cuda
@@ -469,7 +588,7 @@ def test_cuda_decode_attention_cluster_split(cuda, B, H, KV, dh, S, dtype, n,
     """Each split the planner gives on an H100 (132 SMs) against the
     plain version, wherever the live slots sit; two launches give the
     same bits (the ranks combine in a fixed order)."""
-    from repro_torch.kernels.decode_attention import sm_count
+    from repro_torch.kernels.build import sm_count
     assert tops.decode_split(B, KV, S, sm_count(cuda.index)) == n
     q, k, v, _, _ = _decode_inputs(B, H, KV, dh, S, seed=S + n)
     kv_pos, t = _split_ring(kind, S, seed=S + B)
@@ -576,11 +695,13 @@ def test_cuda_paged_decode_attention_refuses_copies(cuda):
 @pytest.mark.parametrize("B,H,P,dtype", [
     (3, 4, 16, "float32"), (2, 8, 32, "float32"), (2, 4, 64, "float32"),
     (1, 2, 32, "bfloat16"), (8, 64, 64, "bfloat16"),     # rwkv6_7b decode
+    (32, 64, 64, "bfloat16"),                            # a large bucket
 ])
 def test_cuda_wkv_step_kernel(cuda, B, H, P, dtype):
     """Kernel against plain, f32 sums in another order (and an FMA in the
     state update): rtol = atol = 1e-4. In place and into a new buffer the
-    kernel gives the same bits."""
+    kernel gives the same bits, and so do two launches into new
+    buffers."""
     td = getattr(torch, dtype)
     r, k, v, logw, u, S = (torch.from_numpy(a).to(cuda)
                            for a in _wkv_inputs(B, H, P, seed=B + H + P))
@@ -596,6 +717,8 @@ def test_cuda_wkv_step_kernel(cuda, B, H, P, dtype):
     o2, s2 = tops.wkv_step(r, k, v, logw, u, S2, out_state=S2)
     assert s2 is S2
     assert torch.equal(o2, o) and torch.equal(S2, s_new)
+    o3, s3 = tops.wkv_step(r, k, v, logw, u, S, out_state=torch.empty_like(S))
+    assert torch.equal(o3, o) and torch.equal(s3, s_new)
 
 
 @pytest.mark.cuda
@@ -628,3 +751,18 @@ def test_cuda_wkv_step_chain_and_refusals(cuda):
     with pytest.raises(ValueError, match="overlaps"):
         tops.wkv_step(r, k, v, logw, u, big[:S.numel()].view_as(S),
                       out_state=big[16:16 + S.numel()].view_as(S))
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_step_refuses_misaligned_state(cuda):
+    """The kernel moves the state as 16-byte vectors: a state or
+    out_state that starts off 16 bytes raises before any launch."""
+    r, k, v, logw, u, S = (torch.from_numpy(a).to(cuda)
+                           for a in _wkv_inputs(2, 2, 16, seed=0))
+    off = torch.zeros(S.numel() + 4, device=cuda)[1:1 + S.numel()].view_as(S)
+    n0 = tops.wkv_step.launches
+    with pytest.raises(ValueError, match="state must start on 16 bytes"):
+        tops.wkv_step(r, k, v, logw, u, off, out_state=off)
+    with pytest.raises(ValueError, match="out_state must start on 16 bytes"):
+        tops.wkv_step(r, k, v, logw, u, S, out_state=off)
+    assert tops.wkv_step.launches == n0
