@@ -17,13 +17,18 @@ Phases, each printing one JSON line:
    (``chunk_len`` 32) serves cohort traffic on the card and on the CPU:
    greedy tokens must be equal.
 3. serve — the ring-KV main path: an AE-bank matcher (K = 6, 784 -> 128,
-   coarse scoring through ``expert_score``, fine through
-   ``cosine_scores``) in front of six full-width bf16 ``llama3_2_1b``
-   engines (random seeded weights, ring KV, ``max_len`` 256) serving 24
-   routed requests, once with the serial and once with the overlapped
-   executor. Every kernel's launch counter is reset just before each run
-   and read just after; each kernel of the path must have launched, and
-   the two executors' tokens must be equal.
+   coarse scoring through ``expert_score``, fine through one grouped
+   ``cosine_fine`` launch per route chunk) in front of six full-width
+   bf16 ``llama3_2_1b`` engines (random seeded weights, ring KV,
+   ``max_len`` 256) serving 24 routed requests, once with the serial and
+   once with the overlapped executor. Every kernel's launch counter is
+   reset just before each run and read just after; each kernel of the
+   path must have launched, ``expert_score`` and ``cosine_scores``
+   exactly once per route chunk with misses (counted by wrapping the
+   router's per-chunk fine match, ``Router._fine_grouped``, here and in
+   phases 4 and 6), each request's expert
+   and fine class must equal the CPU plain path's (a Router over a CPU
+   copy of the bank), and the two executors' tokens must be equal.
 4. serve_paged — the paged-KV path: the same matcher in front of six
    paged engines sharing the serve phase's weight tensors (page 8, pool
    of 1536 pages + trash per expert, ``chunk_len`` 64, 64 prompt tokens
@@ -53,7 +58,13 @@ Phases, each printing one JSON line:
    inputs at the shapes its serve phase gave it (tolerance stated), and
    its device time beside the plain version's, a library yardstick's and
    its bound (L2 flushed before every timed launch, as the serving path
-   finds it); ``paged_decode_attention`` must also equal
+   finds it). The ``cosine_scores`` row is the grouped ``cosine_fine``
+   launch at the serve phase's route chunk (every routed group's bucket
+   stacked over the matcher's K = 6, M = 10, h = 128 centroids), classes
+   equal to the plain version's and bit-equal to per-group launches,
+   with a single-group case at the largest group's bucket (its classes
+   through ``cosine_fine`` with one expert);
+   ``paged_decode_attention`` must also equal
    ``decode_attention`` on the gathered view bit for bit, and 256
    chained ``wkv_step`` launches must follow 256 plain steps, at the
    serve's bucket and at B = 32. Every row reports its time less the
@@ -62,7 +73,8 @@ Phases, each printing one JSON line:
    tiles), reports its cluster plan, the clusters the card holds at
    once, shared memory and the launch timed at other cluster sizes; the
    two decode rows their cluster split and shared memory, and those
-   three and ``wkv_step`` the registers and spills ptxas reported; the
+   three, ``cosine_scores`` and ``wkv_step`` the registers and spills
+   ptxas reported; the
    ring row adds a long-ring case (B = 1, 4000 of 4096 slots live) beside
    SDPA.
 
@@ -435,12 +447,15 @@ def serve_phase(np, torch, dev, ops):
                  device=dev).serve(requests(10_000))
     reqs = requests(0)
     engines = [registry[e].backend for e in range(len(registry))]
+    want_routes = cpu_routes(np, torch, matcher, reqs)
     runs, tokens = {}, {}
     for executor in ("serial", "overlapped"):
         server = RoutedServer(matcher, registry, executor=executor,
                               device=dev)
         before = [(e.stats.host_blocks, e.stats.decode_steps)
                   for e in engines]
+        seen = []
+        fine_calls = _record_route(server.router, seen)
         torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
@@ -448,6 +463,9 @@ def serve_phase(np, torch, dev, ops):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = ops.launches()
+        _unrecord_route(server.router)
+        chunks = route_chunks(executor, fine_calls, launches)
+        check_routes(executor, want_routes, resps)
         if len(resps) != len(reqs):
             raise AssertionError(f"{executor}: {len(resps)} responses "
                                  f"for {len(reqs)} requests")
@@ -477,20 +495,28 @@ def serve_phase(np, torch, dev, ops):
             "seconds": dt, "req_per_s": len(resps) / dt,
             "generated_tok_per_s": n_tok / dt, "tokens": n_tok,
             "decode_steps": steps, "host_blocks": blocks,
-            "launches": launches,
+            "launches": launches, "route_chunks": chunks,
             "routed": sorted({r.expert for r in resps}),
         }
+        if executor == "serial":
+            if len(seen) != 1 or seen[0][1] or chunks != 1:
+                raise AssertionError(f"serial: {len(seen)} route calls, "
+                                     f"{chunks} chunks; expected one chunk "
+                                     "of misses")
+            chunk_top1 = seen[0][2]
     if not all(np.array_equal(a, b) for a, b in
                zip(tokens["serial"], tokens["overlapped"])):
         raise AssertionError("serial and overlapped tokens differ")
-    # the shapes the main path gave each kernel
-    groups = {}
-    for r in resps:
-        groups[r.expert] = groups.get(r.expert, 0) + 1
+    # the shapes the main path gave each kernel: the serial run's first
+    # route chunk (all 24 rows missed its fresh router's LRU)
     row_buckets = server.router.row_buckets
+    experts, counts = np.unique(chunk_top1, return_counts=True)
+    groups = [(int(e), int(n), bucket_for(int(n), row_buckets))
+              for e, n in zip(experts, counts)]
     shapes = {
         "route_rows": bucket_for(len(reqs), row_buckets),
-        "group_rows": bucket_for(max(groups.values()), row_buckets),
+        "group_rows": max(nb for _, _, nb in groups),
+        "route_groups": groups,
         "decode_rows": max(max(e.core._decode_shapes, default=1)
                            for e in engines),
         # q_pos of the last decode step of the longest prompt bucket: the
@@ -505,6 +531,7 @@ def serve_phase(np, torch, dev, ops):
              "requests": len(reqs), "max_new_tokens": 16,
              "prompt_len": [8, 64], "kv": "ring", "max_len": 256,
              "param_gb": mem_gb, "tokens_equal": True,
+             "routes_equal_cpu": True,
              "serial": runs["serial"], "overlapped": runs["overlapped"],
              "kernel_shapes": {k: v for k, v in shapes.items()
                                if k not in ("cfg", "engine", "matcher",
@@ -558,12 +585,15 @@ def serve_paged_phase(np, torch, dev, ops, shapes):
         requests(10_000, warm))
     torch.cuda.synchronize()
 
+    want_routes = cpu_routes(np, torch, matcher, requests(0))
+
     def run(server, reg, uid0, label):
         engines = [reg[e].backend for e in range(len(reg))]
         before = [e.stats.as_dict() for e in engines]
-        seen = []
+        seen, routed = [], []
         for e in engines:
             e.core._paged_decode = _record_decode(e.core, seen)
+        fine_calls = _record_route(server.router, routed)
         torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
@@ -573,6 +603,9 @@ def serve_paged_phase(np, torch, dev, ops, shapes):
         launches = ops.launches()
         for e in engines:
             del e.core._paged_decode
+        _unrecord_route(server.router)
+        chunks = route_chunks(label, fine_calls, launches)
+        check_routes(label, want_routes, resps)
         delta = {k: sum(e.stats.as_dict()[k] - b[k]
                         for e, b in zip(engines, before))
                  for k in PREFIX_COUNTERS if k != "suffix_compiles"}
@@ -608,7 +641,7 @@ def serve_paged_phase(np, torch, dev, ops, shapes):
         return resps, {
             "seconds": dt, "req_per_s": len(resps) / dt,
             "generated_tok_per_s": n_tok / dt, "tokens": n_tok,
-            "launches": launches, **delta,
+            "launches": launches, "route_chunks": chunks, **delta,
             "routed": sorted({r.expert for r in resps}),
             "pages_in_use_after": sum(e.core.pool.used_count(0)
                                       for e in engines),
@@ -630,8 +663,7 @@ def serve_paged_phase(np, torch, dev, ops, shapes):
                                  f"at uid {a.uid}")
     for label, r in (("serial", serial), ("overlapped", overlapped)):
         if not (r["prefix_dup_rows"] and r["pages_copied"]
-                and r["suffix_shapes"] and r["launches"]["expert_score"]
-                and r["launches"]["cosine_scores"]
+                and r["suffix_shapes"] and r["route_chunks"]
                 and r["prefill_tokens_computed"]
                 < r["prefill_tokens_submitted"]):
             raise AssertionError(f"{label}: a paged counter did not move: "
@@ -670,6 +702,7 @@ def serve_paged_phase(np, torch, dev, ops, shapes):
             * len(ring) / 1e9,
             "traffic": {k: kinds.count(k) for k in sorted(set(kinds))},
             "tokens_equal_serial_overlapped": True,
+            "routes_equal_cpu": True,
             "serial": serial, "overlapped": overlapped, "again": again,
             "ring_serial_same_traffic": ring_run,
             "ring_equal_share_cohort": sum(cohort) / len(cohort),
@@ -877,12 +910,15 @@ def serve_rwkv_phase(np, torch, dev, ops, shapes):
     # warm-up traffic of the same shapes on a server of its own
     RoutedServer(matcher, registry, executor="serial",
                  device=dev).serve(requests(10_000))
+    want_routes = cpu_routes(np, torch, matcher, requests(0))
     runs, tokens = {}, {}
     for executor in ("serial", "overlapped"):
         server = RoutedServer(matcher, registry, executor=executor,
                               device=dev)
         before = [(e.stats.host_blocks, e.stats.decode_steps)
                   for e in engines]
+        seen = []
+        fine_calls = _record_route(server.router, seen)
         torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
@@ -890,6 +926,10 @@ def serve_rwkv_phase(np, torch, dev, ops, shapes):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = ops.launches()
+        _unrecord_route(server.router)
+        label = f"serve_rwkv {executor}"
+        chunks = route_chunks(label, fine_calls, launches)
+        check_routes(label, want_routes, resps)
         if len(resps) != len(picks):
             raise AssertionError(f"serve_rwkv {executor}: {len(resps)} "
                                  f"responses for {len(picks)} requests")
@@ -914,10 +954,9 @@ def serve_rwkv_phase(np, torch, dev, ops, shapes):
                 f"serve_rwkv {executor}: decode_attention launched "
                 f"{launches['decode_attention']} times for {l_steps} llama "
                 f"decode steps of {lmodel.cfg.n_layers} layers")
-        if not (launches["expert_score"] and launches["cosine_scores"]) \
-                or launches["paged_decode_attention"]:
+        if not chunks or launches["paged_decode_attention"]:
             raise AssertionError(f"serve_rwkv {executor}: launches "
-                                 f"{launches}")
+                                 f"{launches} over {chunks} route chunks")
         routed = {n: sum(r.expert == n for r in resps) for n in names}
         # the (batch, length) buckets each engine ran: the warm-up served
         # the same traffic, so these are this run's
@@ -935,7 +974,8 @@ def serve_rwkv_phase(np, torch, dev, ops, shapes):
             "seconds": dt, "req_per_s": len(resps) / dt,
             "generated_tok_per_s": n_tok / dt, "tokens": n_tok,
             "decode_steps_rwkv": r_steps, "decode_steps_llama": l_steps,
-            "host_blocks": blocks, "launches": launches, "routed": routed,
+            "host_blocks": blocks, "launches": launches,
+            "route_chunks": chunks, "routed": routed,
             "prefill_buckets": buckets,
             "rwkv_decode_rows_max": max(
                 max(e.core._decode_shapes, default=0)
@@ -949,7 +989,8 @@ def serve_rwkv_phase(np, torch, dev, ops, shapes):
              "experts": {n: f for n, f, _ in RWKV_FLEET},
              "requests": len(picks), "max_new_tokens": 16,
              "kv": "ring", "max_len": 256, "rwkv_param_gb": rwkv_gb,
-             "tokens_equal": True, "serial": runs["serial"],
+             "tokens_equal": True, "routes_equal_cpu": True,
+             "serial": runs["serial"],
              "overlapped": runs["overlapped"],
              "kernel_shape": {"wkv_step": [rows, rcfg.n_heads, rcfg.dh]}},
             {"decode_rows": rows, "engine": engines[0], "cfg": rcfg})
@@ -1092,27 +1133,12 @@ def kernel_phase(np, torch, dev, ops, shapes):
         "bound_ms", "bound_by", "library_ms", "shape", "plan")}}
     out.append(row)
 
-    # -- kernel 2: cosine_scores at the largest routed group's bucket ----
-    B2, M, h = shapes["group_rows"], shapes["n_classes"], 128
-    z = torch.relu(torch.randn(B2, h, generator=gen, device=dev))
-    z[-1] = 0.0                      # a router zero-padding row
-    cents = torch.relu(torch.randn(M, h, generator=gen, device=dev))
-    mask = (torch.arange(M, device=dev) < M - 3).float()
-    got = ops.cosine_scores(z, cents, mask)
-    want = ops.cosine_scores_plain(z, cents, mask)
-
-    def lib2():
-        s = F.normalize(z, dim=-1) @ F.normalize(cents, dim=-1).T
-        return s.masked_fill_(mask <= 0, float("-inf"))
-
-    out.append(record(
-        "cosine_scores", "src/repro_torch/kernels/csrc/cosine_scores.cu",
-        "src/repro/kernels/cosine_topk.py:27", got, want, 2e-5, 1e-6,
-        lambda: ops.cosine_scores(z, cents, mask),
-        lambda: ops.cosine_scores_plain(z, cents, mask), lib2,
-        "F.normalize x2 + matmul + masked_fill",
-        4 * (B2 * h + M * h + M + B2 * M), 2 * B2 * M * h + 3 * (B2 + M) * h,
-        "float32", [B2, M, h]))
+    # -- kernel 2: cosine_fine over the serve phase's route chunk, and
+    # cosine_scores (the same body, one expert) at its largest group ----
+    row = cosine_kernel_row(torch, F, dev, ops, gen, record, shapes)
+    row["ptxas"] = ptxas_report(build.build_log, "cosine_fine_kernel",
+                                "Lb1E")
+    out.append(row)
 
     # -- kernel 3: decode_attention over one decode step's 16 layers, with
     # the ring as full as the main path's last decode step left it ------
@@ -1325,6 +1351,106 @@ def expert_kernel_row(torch, dev, ops, build, gen, record, device_ms, B):
     return row
 
 
+def cosine_kernel_row(torch, F, dev, ops, gen, record, shapes):
+    """Kernel 2 as the main path launches it: one route chunk of the
+    serve phase, every routed expert group's row bucket stacked (a
+    group's rows, then its zero padding, as the router pads), each row
+    against its own expert's centroids in the serve matcher's stacked
+    (K 6, M 10, h 128) tensor with its class masks, and the argmax. Held
+    to ``cosine_fine_plain`` at rtol 2e-5, atol 1e-6 with the same -inf
+    positions and equal classes; two launches, and ``cosine_scores``
+    launched group by group, give the same bits. The library yardstick
+    gathers ``centroids[expert]`` and runs F.normalize x2 + bmm +
+    masked_fill + argmax. Case ``single_group``: ``cosine_scores`` (the
+    TPU kernel's signature) at the largest group's bucket, and its
+    classes through ``cosine_fine`` with one expert, equal to the plain
+    version's."""
+    m = shapes["matcher"]
+    C, Mk = m.centroids, m.centroid_mask
+    K, M, h = C.shape
+    groups = shapes["route_groups"]
+    zs, ex = [], []
+    for e, n, nb in groups:
+        z = torch.zeros(nb, h, device=dev)
+        z[:n] = torch.relu(torch.randn(n, h, generator=gen, device=dev))
+        zs.append(z)
+        ex += [e] * nb
+    z = torch.cat(zs)
+    R = len(z)
+    ex = torch.tensor(ex, dtype=torch.int32, device=dev)
+    exl = ex.long()
+    got, cls = ops.cosine_fine(z, C, Mk, ex)
+    want, want_cls = ops.cosine_fine_plain(z, C, Mk, ex)
+    if not torch.equal(cls, want_cls):
+        raise AssertionError(f"cosine_fine: classes {cls.tolist()} differ "
+                             f"from the plain version's {want_cls.tolist()}")
+    again = ops.cosine_fine(z, C, Mk, ex)
+    if not (torch.equal(again[0], got) and torch.equal(again[1], cls)):
+        raise AssertionError("cosine_fine: two launches differ")
+    o = 0
+    for e, _, nb in groups:
+        if not torch.equal(ops.cosine_scores(z[o:o + nb], C[e], Mk[e]),
+                           got[o:o + nb]):
+            raise AssertionError(f"cosine_fine: expert {e}'s rows differ "
+                                 "from its own cosine_scores launch")
+        o += nb
+
+    def lib():
+        cn = F.normalize(C[exl], dim=-1)
+        s = torch.bmm(cn, F.normalize(z, dim=-1)[:, :, None])[:, :, 0]
+        s = s.masked_fill_(Mk[exl] <= 0, float("-inf"))
+        return s, s.argmax(-1)
+
+    used = len(groups)          # each routed expert's centroids, read once
+    row = record(
+        "cosine_scores", "src/repro_torch/kernels/csrc/cosine_scores.cu",
+        "src/repro/kernels/cosine_topk.py:27", got, want, 2e-5, 1e-6,
+        lambda: ops.cosine_fine(z, C, Mk, ex),
+        lambda: ops.cosine_fine_plain(z, C, Mk, ex), lib,
+        "centroids[expert] gather + F.normalize x2 + bmm + masked_fill + "
+        "argmax", 4 * (R * h + used * (M * h + M) + R + R * M) + 8 * R,
+        2 * R * M * h + 2 * R * h + 2 * used * M * h, "float32", [R, K, M, h])
+    row.update({"entry": "cosine_fine", "groups": groups,
+                "classes_equal": True, "bit_equal_launches": True,
+                "bit_equal_per_group": True})
+
+    # the TPU kernel's signature at the largest group's bucket
+    B2 = shapes["group_rows"]
+    zs = torch.relu(torch.randn(B2, h, generator=gen, device=dev))
+    zs[-1] = 0.0                     # a router zero-padding row
+    cents = torch.relu(torch.randn(M, h, generator=gen, device=dev))
+    mask = (torch.arange(M, device=dev) < M - 3).float()
+    got = ops.cosine_scores(zs, cents, mask)
+    if not torch.equal(got, ops.cosine_scores(zs, cents, mask)):
+        raise AssertionError("cosine_scores: two launches differ")
+    # its classes: the same inputs through the grouped entry, one expert
+    one_ex = torch.zeros(B2, dtype=torch.int32, device=dev)
+    fine1, cls1 = ops.cosine_fine(zs, cents[None], mask[None], one_ex)
+    want_cls1 = ops.cosine_fine_plain(zs, cents[None], mask[None], one_ex)[1]
+    if not (torch.equal(fine1, got) and torch.equal(cls1, want_cls1)):
+        raise AssertionError(
+            f"cosine_scores: classes {cls1.tolist()} (or scores) through "
+            f"cosine_fine differ from the plain version's "
+            f"{want_cls1.tolist()}")
+
+    def lib1():
+        s = F.normalize(zs, dim=-1) @ F.normalize(cents, dim=-1).T
+        return s.masked_fill_(mask <= 0, float("-inf"))
+
+    one = record(
+        "cosine_scores", "", "", got, ops.cosine_scores_plain(zs, cents, mask),
+        2e-5, 1e-6, lambda: ops.cosine_scores(zs, cents, mask),
+        lambda: ops.cosine_scores_plain(zs, cents, mask), lib1,
+        "F.normalize x2 + matmul + masked_fill",
+        4 * (B2 * h + M * h + M + B2 * M), 2 * B2 * M * h + 2 * (B2 + M) * h,
+        "float32", [B2, M, h])
+    row["cases"] = {"single_group": {"classes_equal": True, **{
+        k: one[k] for k in ("max_abs_err", "rtol", "atol", "ms", "ms_runs",
+                            "plain_ms", "bound_ms", "bound_by", "library_ms",
+                            "library_call", "shape")}}}
+    return row
+
+
 def decode_body(ops, build, addr, B, KV, G, S, n_lp, dh):
     """The decode kernel's launch shape at these inputs (its cluster
     split, the dynamic shared memory a block asks for) and what ptxas
@@ -1493,6 +1619,69 @@ def _record_decode(core, seen):
         seen.append((w.tok.shape[1], w.pos, w.t))
         return logits
     return wrapped
+
+
+def _record_route(router, seen):
+    """Wrap ``router.route`` and ``router._fine_grouped`` on the
+    instance: per route call, ``seen`` keeps the rows it was given, its
+    LRU hits and its top-1 experts; the list returned gets one entry per
+    ``_fine_grouped`` call, the fine match of one route chunk with
+    misses (nothing is copied to the card). ``_unrecord_route`` takes
+    both wrappers off."""
+    route, fine = router.route, router._fine_grouped
+    chunks = []
+
+    def wrapped(feats):
+        res = route(feats)
+        seen.append((len(feats), res.cache_hits, res.coarse[:, 0].copy()))
+        return res
+
+    def fine_wrapped(x, coarse_top1):
+        chunks.append(len(x))
+        return fine(x, coarse_top1)
+    router.route, router._fine_grouped = wrapped, fine_wrapped
+    return chunks
+
+
+def _unrecord_route(router):
+    del router.route, router._fine_grouped
+
+
+def route_chunks(label, chunks, launches):
+    """The route chunks with misses, one per ``_fine_grouped`` call that
+    ``_record_route`` recorded; each launches ``expert_score`` once and
+    ``cosine_scores`` (the grouped fine entry) once, however many expert
+    groups it holds."""
+    chunks = len(chunks)
+    for name in ("expert_score", "cosine_scores"):
+        if launches[name] != chunks:
+            raise AssertionError(f"{label}: {name} launched {launches[name]}"
+                                 f" times for {chunks} route chunks with "
+                                 "misses")
+    return chunks
+
+
+def cpu_routes(np, torch, matcher, reqs):
+    """(expert name, fine class) of each request through the CPU plain
+    path: a Router over a CPU copy of the bank, coarse scoring and fine
+    match through the kernels' plain versions."""
+    from repro_torch.core import ExpertMatcher
+    from repro_torch.serve.router import Router
+    cpu = ExpertMatcher(_tree(matcher.bank_params, lambda t: t.cpu()),
+                        _tree(matcher.bank_states, lambda t: t.cpu()),
+                        matcher.names, matcher.centroids.cpu(),
+                        matcher.centroid_mask.cpu())
+    res = Router(cpu).route(np.stack([q.features for q in reqs]))
+    return [(matcher.names[int(e)], int(f))
+            for e, f in zip(res.coarse[:, 0], res.fine)]
+
+
+def check_routes(label, want, resps):
+    got = [(r.expert, r.fine_class) for r in resps]
+    if got != want:
+        bad = [(i, g, w) for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise AssertionError(f"{label}: (expert, fine class) differ from the "
+                             f"CPU plain path at (request, card, CPU) {bad}")
 
 
 def paged_case(np, torch, dev, B, nlp, page, n_pages, live):

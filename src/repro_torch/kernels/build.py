@@ -48,8 +48,9 @@ SIGNATURES = {
     "expert_score_smem_bytes": [_I, _I, _I, _I],
     # D, H, n_rank, rows -> clusters of n_rank blocks resident at once
     "expert_score_max_clusters": [_I, _I, _I, _I],
-    # z, centroids, mask, out, B, M, h, eps, stream
-    "cosine_scores_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # z, centroids, mask, expert (or null), out, cls (or null), R, K, M,
+    # h, eps, stream
+    "cosine_fine_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, q_pos, kv_pos, out, B, H, KV, S, dh, window, scale,
     # is_bf16, n_split, stream
     "decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -3,7 +3,8 @@
 on a CUDA tensor and runs its plain PyTorch version on a CPU tensor;
 each carries a ``launches`` counter that only real kernel launches bump.
 """
-from .cosine_topk import cosine_scores, cosine_scores_plain
+from .cosine_topk import (cosine_fine, cosine_fine_plain, cosine_scores,
+                          cosine_scores_plain)
 from .decode_attention import (decode_attention, decode_attention_plain,
                                decode_split)
 from .expert_score import (expert_score, expert_score_folded,
@@ -13,7 +14,8 @@ from .paged_decode_attention import (paged_decode_attention,
                                      paged_decode_attention_plain)
 from .wkv_step import wkv_step, wkv_step_plain
 
-#: every kernel wrapper of the port, by name
+#: every kernel wrapper of the port, by name (``cosine_fine`` counts on
+#: ``cosine_scores``: one kernel body)
 WRAPPERS = {
     "expert_score": expert_score_folded,
     "cosine_scores": cosine_scores,
@@ -32,8 +34,9 @@ def launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-__all__ = ["WRAPPERS", "cosine_scores", "cosine_scores_plain",
-           "decode_attention", "decode_attention_plain", "decode_split",
+__all__ = ["WRAPPERS", "cosine_fine", "cosine_fine_plain", "cosine_scores",
+           "cosine_scores_plain", "decode_attention",
+           "decode_attention_plain", "decode_split",
            "expert_score", "expert_score_folded", "expert_score_plain",
            "expert_slices", "expert_split", "fold_bank", "launches",
            "paged_decode_attention", "paged_decode_attention_plain",

@@ -3,9 +3,11 @@ cache.
 
   * routing batches snap to power-of-two row buckets, so the set of
     shapes the scoring kernels see stays bounded under arbitrary traffic;
-  * fine assignment runs per routed-expert *group* — each sample is
-    encoded only under its own expert, and the group's (z, centroids,
-    mask) triple goes through the ``cosine_scores`` kernel;
+  * fine assignment encodes each routed-expert *group* only under its
+    own expert (padded to its row bucket); the encoded rows of every
+    group of a route chunk then go through ONE ``cosine_fine`` launch,
+    which scores each row against its own expert's centroids and takes
+    the argmax, and one device-to-host copy brings the classes back;
   * routing decisions are memoized per client fingerprint in an LRU:
     clients in the paper's setting re-query with the same fingerprint.
 
@@ -26,7 +28,7 @@ import torch
 
 from ..core import autoencoder as ae
 from ..core.matcher import ExpertMatcher
-from ..kernels.cosine_topk import cosine_scores
+from ..kernels.cosine_topk import cosine_fine
 from .core import bucket_for, make_buckets
 
 
@@ -93,27 +95,43 @@ class Router:
         return ae.encode(params, state, x)
 
     # ------------------------------------------------------------------
-    def _pad_rows(self, x: np.ndarray) -> Tuple[torch.Tensor, int]:
+    def _pad_rows(self, x: np.ndarray) -> Tuple[np.ndarray, int]:
         n = len(x)
         nb = bucket_for(n, self.row_buckets)
         if nb > n:
             x = np.concatenate([x, np.zeros((nb - n,) + x.shape[1:],
                                             x.dtype)])
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device), n
+        return x, n
+
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     def _fine_grouped(self, x: np.ndarray,
                       coarse_top1: np.ndarray) -> np.ndarray:
-        """Per-expert-group fine assignment through the cosine kernel."""
+        """Fine assignment of one route chunk: each expert group padded
+        to its row bucket and encoded under its own expert, then one
+        ``cosine_fine`` launch over every group's rows and one copy of
+        the classes to the host. ``score_calls`` counts groups."""
         m = self.matcher
-        fine = np.zeros(len(x), np.int64)
+        groups, xs, experts = [], [], []
+        off = 0
         for e in np.unique(coarse_top1):
             rows = np.nonzero(coarse_top1 == e)[0]
-            xg, n = self._pad_rows(x[rows])
-            z = self._encode_at(xg, int(e))
-            sim = cosine_scores(z.contiguous(), m.centroids[int(e)],
-                                m.centroid_mask[int(e)])
-            fine[rows] = torch.argmax(sim, dim=-1).cpu().numpy()[:n]
+            xg, _ = self._pad_rows(x[rows])
+            groups.append((int(e), rows, off, len(xg)))
+            xs.append(xg)
+            experts.append(np.full(len(xg), e, np.int32))
+            off += len(xg)
             self.stats["score_calls"] += 1
+        xd = self._to_device(np.concatenate(xs))
+        z = torch.cat([self._encode_at(xd[o:o + nb], e)
+                       for e, _, o, nb in groups])
+        _, cls = cosine_fine(z, m.centroids, m.centroid_mask,
+                             self._to_device(np.concatenate(experts)))
+        cls = cls.cpu().numpy()
+        fine = np.zeros(len(x), np.int64)
+        for _, rows, o, _ in groups:
+            fine[rows] = cls[o:o + len(rows)]
         return fine
 
     # ------------------------------------------------------------------
@@ -144,6 +162,7 @@ class Router:
             chunk = miss[lo:lo + step]
             xm = feats[chunk]
             xp, n = self._pad_rows(xm)
+            xp = self._to_device(xp)
             c, s = self.matcher.assign_coarse_topk(xp)
             c = c.cpu().numpy()[:n]
             s = s.cpu().numpy()[:n]

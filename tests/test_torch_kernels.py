@@ -269,6 +269,8 @@ def test_cpu_calls_take_the_plain_path_and_count_nothing():
     params, states = _bank(2, 64, 16)
     tops.expert_score(_t(params), torch.rand(4, 64), _t(states))
     tops.cosine_scores(torch.rand(4, 16), torch.rand(3, 16), torch.ones(3))
+    tops.cosine_fine(torch.rand(4, 16), torch.rand(2, 3, 16),
+                     torch.ones(2, 3), torch.tensor([0, 1, 1, 0]))
     q, k, v, t, kv_pos = _decode_inputs(1, 4, 2, 32, 16, seed=0)
     tops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
                           torch.from_numpy(v), torch.tensor(t),
@@ -295,6 +297,8 @@ def test_wrappers_refuse_other_devices():
         tops.decode_attention(q, k, k, pos[0], pos)
     with pytest.raises(ValueError, match="unsupported device"):
         tops.cosine_scores(q[0], q[0], pos[:4].float())
+    with pytest.raises(ValueError, match="unsupported device"):
+        tops.cosine_fine(q[0], q, pos[:4].float()[None], pos[:4])
     with pytest.raises(ValueError, match="unsupported device"):
         tops.paged_decode_attention(q, k[0], k[0], pos[None, :1], pos[0],
                                     pos)
