@@ -21,7 +21,13 @@ Phases, each printing one JSON line:
    ``cosine_fine`` launch per route chunk) in front of six full-width
    bf16 ``llama3_2_1b`` engines (random seeded weights, ring KV,
    ``max_len`` 256) serving 24 routed requests, once with the serial and
-   once with the overlapped executor. Every kernel's launch counter is
+   once with the overlapped executor, each decode step a replay of its
+   bucket's captured CUDA graph (every bucket captured by a warm-up
+   serve of the same requests); then the same two runs through engines
+   on the same weights with ``capture_decode=False`` (the eager step).
+   Every run's tokens must equal the first's, its ``host_blocks`` the
+   executor's count before capture (176 / 11), and a replay counts the
+   launches its capture recorded. Every kernel's launch counter is
    reset just before each run and read just after; each kernel of the
    path must have launched, ``expert_score`` and ``cosine_scores``
    exactly once per route chunk with misses (counted by wrapping the
@@ -37,11 +43,18 @@ Phases, each printing one JSON line:
    serial, overlapped, then again on the same server with fresh uids.
    Every decode layer goes through ``paged_decode_attention`` and never
    through ``decode_attention``; the prefix, copy-on-write and chunk
-   counters must all move and the pools' books must balance.
+   counters must all move and the pools' books must balance. Each fleet
+   is fresh and warmed by the same requests with every token shifted by
+   one (the same decode buckets captured, no prefix of the timed
+   requests cached); graph and eager fleets, serial and overlapped, give
+   equal tokens, ``host_blocks`` 96 / 6.
 5. breakdown — one wave's decode step at the serve phase's largest batch
    bucket: eager wall time, device time (the step replayed as a CUDA
    graph), the kernels it launches (``torch.profiler``), the share of
-   ``decode_attention`` in them, and the device's busy share.
+   ``decode_attention`` in them, and the device's busy share; then the
+   engine's own tick of such a wave, host-synchronised, replaying its
+   bucket's graph and eagerly, ring and paged, with the decode kernels'
+   time per launch inside the replay.
 6. serve_rwkv — a mixed-family server, as the reference's launcher
    builds one: an AE bank of K = 4 in front of two full-width bf16
    ``rwkv6_7b`` engines (random seeded weights, ring, ``max_len`` 256)
@@ -49,11 +62,13 @@ Phases, each printing one JSON line:
    tensors, serving 24 routed requests (fingerprints chosen by their
    route: at least 6 per RWKV expert, RWKV prompt buckets both below the
    32-token chunk, a scan prefill, and at or above it, a chunked one),
-   serial and overlapped. Every RWKV decode layer goes through
-   ``wkv_step`` (32 launches per RWKV decode step) and every llama one
-   through ``decode_attention``; the two executors' tokens must be equal.
+   serial and overlapped, through graphs and eagerly. Every RWKV decode
+   layer goes through ``wkv_step`` (32 launches per RWKV decode step) and
+   every llama one through ``decode_attention``; every run's tokens must
+   equal the first's, ``host_blocks`` 192 / 12.
 7. breakdown_rwkv — one RWKV decode step at that phase's largest RWKV
-   decode bucket, timed as in phase 5, with ``wkv_step``'s share.
+   decode bucket, timed as in phase 5, with ``wkv_step``'s share, and the
+   engine's own tick replayed and eager.
 8. kernels — each kernel against its plain PyTorch version on the same
    inputs at the shapes its serve phase gave it (tolerance stated), and
    its device time beside the plain version's, a library yardstick's and
@@ -82,13 +97,20 @@ The reference phase (2) also runs a reduced f32 ``rwkv6_7b`` expert
 (``ssm_chunk`` 16) on the card and on the CPU, through both of its
 prefill branches: logits must agree and greedy tokens be equal.
 
-Then a summary line ``{"kernels": [...], "launch_floor_ms": ...}``, the
+Phases 3, 4 and 6 report each run's seconds, decode steps, residency
+swaps and captures, and the fleet's graphs (``graphs``: step objects,
+graphs captured, host ms of the captures, swaps).
+
+Then a summary line ``{"kernels": [...], "launch_floor_ms": ...}`` (rows
+3-5 with ``ms_in_graph_step``, their time per launch inside the
+engine's replayed step), the
 raw ``nvidia-smi`` name and power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result, as it does without a CUDA device.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -142,18 +164,30 @@ def main() -> int:
     emit(serve)
     paged = serve_paged_phase(np, torch, dev, ops, shapes)
     emit(paged)
-    emit(breakdown_phase(np, torch, dev, shapes))
+    dense = breakdown_phase(np, torch, dev, shapes)
+    emit(dense)
     rwkv, rshapes = serve_rwkv_phase(np, torch, dev, ops, shapes)
     emit(rwkv)
-    emit(breakdown_rwkv_phase(np, torch, dev, rshapes))
+    recur = breakdown_rwkv_phase(np, torch, dev, rshapes)
+    emit(recur)
     shapes["rwkv_rows"] = rshapes["decode_rows"]
     del rshapes                      # the last RWKV expert's weights
     kernels, floor = kernel_phase(np, torch, dev, ops, shapes)
+    # rows 3-5 inside the engine's replayed step (torch.profiler)
+    in_step = {"decode_attention": dense["engine"],
+               "paged_decode_attention": dense["engine"]["paged"],
+               "wkv_step": recur["engine"]}
     for k in kernels:
         # each kernel's count from the serial run of the path it serves
         run = {"paged_decode_attention": paged,
                "wkv_step": rwkv}.get(k["name"], serve)
         k["launches"] = run["serial"]["launches"][k["name"]]
+        if k["name"] in in_step:
+            eng = in_step[k["name"]]
+            us = next(v for key, v in eng.items()
+                      if key.endswith("_us_per_launch"))
+            k["ms_in_graph_step"] = None if us is None else us / 1e3
+            k["graph_step_rows"] = eng["rows"]
     emit({"kernels": kernels, "launch_floor_ms": min(floor),
           "launch_floor_ms_runs": floor,
           "launch_floor_call": "one-element float32 add_, 8 bytes"})
@@ -399,6 +433,65 @@ DATASETS = [("stl10", 10), ("mnist", 10), ("har", 6), ("reuters", 4),
             ("nlos", 3), ("db", 3)]
 
 
+#: each serve phase's runs, (captured graphs, executor): the graph runs,
+#: then the same requests through the eager step (capture_decode=False)
+RUNS = ((True, "serial"), (True, "overlapped"), (False, "serial"),
+        (False, "overlapped"))
+#: host blocks a serve makes, the executors' promise (PERF.md §2): the
+#: same through graphs and eagerly
+HOST_BLOCKS = {"serve": {"serial": 176, "overlapped": 11},
+               "serve_paged": {"serial": 96, "overlapped": 6},
+               "serve_rwkv": {"serial": 192, "overlapped": 12}}
+#: engine counters a serve run reports as deltas
+DELTAS = ("host_blocks", "decode_steps", "decode_swaps", "decode_captured",
+          "decode_capture_ms")
+
+
+def warm_graphs(server_cls, matcher, registry, reqs, dev, **kw):
+    """Serve ``reqs`` under fresh uids through ``registry`` on a server of
+    its own (its router starts cold, as each timed run's does), so every
+    decode bucket the timed runs reach is captured before they start."""
+    server_cls(matcher, registry, executor="serial", device=dev,
+               **kw).serve([dataclasses.replace(q, uid=q.uid + 20_000)
+                            for q in reqs])
+
+
+def engine_delta(engines, before, keys=DELTAS):
+    """What one run added to the engines' counters ``keys``."""
+    return {k: sum(e.stats.as_dict()[k] - b[k]
+                   for e, b in zip(engines, before)) for k in keys}
+
+
+def graph_stats(engines):
+    """The decode step objects of a fleet: how many, how many captured,
+    the host ms their captures took, the residency swaps so far."""
+    st = [e.stats for e in engines]
+    return {"decode_compiles": sum(s.decode_compiles for s in st),
+            "captured": sum(s.decode_captured for s in st),
+            "capture_ms": sum(s.decode_capture_ms for s in st),
+            "swaps": sum(s.decode_swaps for s in st),
+            "buckets": sorted({b for e in engines for b in e.core._graphs}),
+            "bound": sum(e.core.executable_bounds()["decode"]
+                         for e in engines)}
+
+
+def check_blocks(label, delta, want):
+    if delta["host_blocks"] != want:
+        raise AssertionError(f"{label}: {delta['host_blocks']} host blocks, "
+                             f"{want} before the decode was captured")
+
+
+def same_tokens(phase, tokens, equal):
+    """Every run of the phase (graph and eager, serial and overlapped)
+    gave the first run's tokens."""
+    (first, want), *rest = tokens.items()
+    for label, got in rest:
+        if len(got) != len(want) or not all(equal(a, b)
+                                            for a, b in zip(got, want)):
+            raise AssertionError(f"{phase}: {label} tokens differ from "
+                                 f"{first}'s")
+
+
 def serve_phase(np, torch, dev, ops):
     from repro_torch.configs import get_config
     from repro_torch.core import (ExpertRegistry, MatcherConfig,
@@ -420,13 +513,17 @@ def serve_phase(np, torch, dev, ops):
 
     cfg = get_config("llama3_2_1b")
     model = build_model(cfg)
-    registry = ExpertRegistry()
+    # one fleet steps through captured graphs, the other (same weight
+    # tensors) eagerly: capture_decode=False
+    registry, eager = ExpertRegistry(), ExpertRegistry()
     for i, name in enumerate(names):
         params = model.init(
             torch.Generator(device=dev).manual_seed(SEED + 1 + i),
             device=dev)
         registry.add(name, ExpertEngine(model, params, max_len=256,
                                         device=dev))
+        eager.add(name, ExpertEngine(model, params, max_len=256,
+                                     device=dev, capture_decode=False))
     torch.cuda.synchronize()
     mem_gb = torch.cuda.memory_allocated() / 1e9
 
@@ -446,14 +543,18 @@ def serve_phase(np, torch, dev, ops):
     RoutedServer(matcher, registry, executor="serial",
                  device=dev).serve(requests(10_000))
     reqs = requests(0)
+    # and the timed requests' own buckets, so every graph the timed runs
+    # replay is captured here (each server's router starts cold)
+    warm_graphs(RoutedServer, matcher, registry, reqs, dev)
     engines = [registry[e].backend for e in range(len(registry))]
     want_routes = cpu_routes(np, torch, matcher, reqs)
-    runs, tokens = {}, {}
-    for executor in ("serial", "overlapped"):
-        server = RoutedServer(matcher, registry, executor=executor,
-                              device=dev)
-        before = [(e.stats.host_blocks, e.stats.decode_steps)
-                  for e in engines]
+    runs, tokens = {True: {}, False: {}}, {}
+    for capture, executor in RUNS:
+        reg = registry if capture else eager
+        label = f"{'graph' if capture else 'eager'} {executor}"
+        server = RoutedServer(matcher, reg, executor=executor, device=dev)
+        fleet = [reg[e].backend for e in range(len(reg))]
+        before = [e.stats.as_dict() for e in fleet]
         seen = []
         fine_calls = _record_route(server.router, seen)
         torch.cuda.synchronize()
@@ -464,49 +565,45 @@ def serve_phase(np, torch, dev, ops):
         dt = time.perf_counter() - t0
         launches = ops.launches()
         _unrecord_route(server.router)
-        chunks = route_chunks(executor, fine_calls, launches)
-        check_routes(executor, want_routes, resps)
+        chunks = route_chunks(label, fine_calls, launches)
+        check_routes(label, want_routes, resps)
         if len(resps) != len(reqs):
-            raise AssertionError(f"{executor}: {len(resps)} responses "
+            raise AssertionError(f"{label}: {len(resps)} responses "
                                  f"for {len(reqs)} requests")
         for r, q in zip(resps, reqs):
             if r.uid != q.uid or r.tokens.shape != (16,) \
                     or not ((r.tokens >= 0)
                             & (r.tokens < cfg.padded_vocab)).all():
-                raise AssertionError(f"{executor}: bad response {r}")
-        steps = sum(e.stats.decode_steps - b[1]
-                    for e, b in zip(engines, before))
-        blocks = sum(e.stats.host_blocks - b[0]
-                     for e, b in zip(engines, before))
+                raise AssertionError(f"{label}: bad response {r}")
+        delta = engine_delta(fleet, before)
+        steps = delta["decode_steps"]
         if not all(launches[k] for k in RING_PATH):
-            raise AssertionError(f"{executor}: a kernel never launched on "
+            raise AssertionError(f"{label}: a kernel never launched on "
                                  f"the main path: {launches}")
         if launches["paged_decode_attention"] or launches["wkv_step"]:
-            raise AssertionError(f"{executor}: the paged or RWKV kernel ran "
+            raise AssertionError(f"{label}: the paged or RWKV kernel ran "
                                  f"on the dense ring path: {launches}")
         if launches["decode_attention"] != cfg.n_layers * steps:
             raise AssertionError(
-                f"{executor}: decode_attention launched "
+                f"{label}: decode_attention launched "
                 f"{launches['decode_attention']} times for {steps} decode "
                 f"steps of {cfg.n_layers} layers")
+        check_blocks(label, delta, HOST_BLOCKS["serve"][executor])
         n_tok = sum(len(r.tokens) for r in resps)
-        tokens[executor] = [r.tokens for r in resps]
-        runs[executor] = {
+        tokens[label] = [r.tokens for r in resps]
+        runs[capture][executor] = {
             "seconds": dt, "req_per_s": len(resps) / dt,
             "generated_tok_per_s": n_tok / dt, "tokens": n_tok,
-            "decode_steps": steps, "host_blocks": blocks,
-            "launches": launches, "route_chunks": chunks,
+            **delta, "launches": launches, "route_chunks": chunks,
             "routed": sorted({r.expert for r in resps}),
         }
-        if executor == "serial":
+        if capture and executor == "serial":
             if len(seen) != 1 or seen[0][1] or chunks != 1:
                 raise AssertionError(f"serial: {len(seen)} route calls, "
                                      f"{chunks} chunks; expected one chunk "
                                      "of misses")
             chunk_top1 = seen[0][2]
-    if not all(np.array_equal(a, b) for a, b in
-               zip(tokens["serial"], tokens["overlapped"])):
-        raise AssertionError("serial and overlapped tokens differ")
+    same_tokens("serve", tokens, lambda a, b: np.array_equal(a, b))
     # the shapes the main path gave each kernel: the serial run's first
     # route chunk (all 24 rows missed its fresh router's LRU)
     row_buckets = server.router.row_buckets
@@ -517,7 +614,7 @@ def serve_phase(np, torch, dev, ops):
         "route_rows": bucket_for(len(reqs), row_buckets),
         "group_rows": max(nb for _, _, nb in groups),
         "route_groups": groups,
-        "decode_rows": max(max(e.core._decode_shapes, default=1)
+        "decode_rows": max(max(e.core._graphs, default=1)
                            for e in engines),
         # q_pos of the last decode step of the longest prompt bucket: the
         # fullest ring the main path gave the decode kernel
@@ -531,8 +628,10 @@ def serve_phase(np, torch, dev, ops):
              "requests": len(reqs), "max_new_tokens": 16,
              "prompt_len": [8, 64], "kv": "ring", "max_len": 256,
              "param_gb": mem_gb, "tokens_equal": True,
-             "routes_equal_cpu": True,
-             "serial": runs["serial"], "overlapped": runs["overlapped"],
+             "tokens_equal_graph_eager": True, "routes_equal_cpu": True,
+             "serial": runs[True]["serial"],
+             "overlapped": runs[True]["overlapped"], "eager": runs[False],
+             "graphs": graph_stats(engines),
              "kernel_shapes": {k: v for k, v in shapes.items()
                                if k not in ("cfg", "engine", "matcher",
                                             "registry")}}, shapes)
@@ -564,26 +663,28 @@ def serve_paged_phase(np, torch, dev, ops, shapes):
                              long=(100, 128), wrap=180)
     assert len(traffic) == 24
 
-    def fleet():
-        reg = ExpertRegistry()
-        for e in range(len(ring)):
-            reg.add(ring[e].name, ExpertEngine(
-                model, ring[e].backend.params, max_len=256,
-                kv_layout="paged", page_size=8, chunk_len=64, device=dev))
-        return reg
-
     def requests(uid0, tr=traffic):
         return [Request(uid=uid0 + u, features=f, prompt=p,
                         max_new_tokens=16) for u, (f, p, _) in enumerate(tr)]
 
-    # warm-up traffic of the same shapes on a fleet of its own
-    warm = cohort_traffic(np, np.random.default_rng(SEED + 6), cfg.vocab_size,
-                          n_cohorts=4, per_cohort=4, head=48, own=(8, 16),
-                          long=(100, 128), wrap=180)
-    RoutedServer(matcher, fleet(), executor="serial",
-                 prefill_tokens_per_step=64, device=dev).serve(
-        requests(10_000, warm))
-    torch.cuda.synchronize()
+    # warm-up traffic: the same fingerprints, prompt lengths, shared
+    # prefixes and duplicates as the timed requests, every token shifted
+    # by one, so it reaches the same decode buckets (captured here) and
+    # none of its prefixes is one of the timed requests'
+    warm = [(f, (p + 1) % cfg.vocab_size, k) for f, p, k in traffic]
+
+    def fleet(capture):
+        """Six fresh paged engines (an empty prefix cache), warmed."""
+        reg = ExpertRegistry()
+        for e in range(len(ring)):
+            reg.add(ring[e].name, ExpertEngine(
+                model, ring[e].backend.params, max_len=256,
+                kv_layout="paged", page_size=8, chunk_len=64, device=dev,
+                capture_decode=capture))
+        warm_graphs(RoutedServer, matcher, reg, requests(0, warm), dev,
+                    prefill_tokens_per_step=64)
+        torch.cuda.synchronize()
+        return reg
 
     want_routes = cpu_routes(np, torch, matcher, requests(0))
 
@@ -592,7 +693,7 @@ def serve_paged_phase(np, torch, dev, ops, shapes):
         before = [e.stats.as_dict() for e in engines]
         seen, routed = [], []
         for e in engines:
-            e.core._paged_decode = _record_decode(e.core, seen)
+            e.core._decode_step = _record_decode(e.core, seen)
         fine_calls = _record_route(server.router, routed)
         torch.cuda.synchronize()
         ops.reset_launches()
@@ -602,13 +703,13 @@ def serve_paged_phase(np, torch, dev, ops, shapes):
         dt = time.perf_counter() - t0
         launches = ops.launches()
         for e in engines:
-            del e.core._paged_decode
+            del e.core._decode_step
         _unrecord_route(server.router)
         chunks = route_chunks(label, fine_calls, launches)
         check_routes(label, want_routes, resps)
-        delta = {k: sum(e.stats.as_dict()[k] - b[k]
-                        for e, b in zip(engines, before))
-                 for k in PREFIX_COUNTERS if k != "suffix_compiles"}
+        delta = engine_delta(engines, before, [
+            k for k in dict.fromkeys(DELTAS + PREFIX_COUNTERS)
+            if k != "suffix_compiles"])
         delta["suffix_shapes"] = sum(e.stats.suffix_compiles
                                      for e in engines)
         for r, (f, p, _) in zip(resps, traffic):
@@ -647,29 +748,37 @@ def serve_paged_phase(np, torch, dev, ops, shapes):
                                       for e in engines),
             "decode_rows_max": rows, "live_slots_at_max_rows": live}
 
-    reg_s = fleet()
-    srv_s = RoutedServer(matcher, reg_s, executor="serial",
-                         prefill_tokens_per_step=64, device=dev)
-    resp_s, serial = run(srv_s, reg_s, 0, "serial")
-    del srv_s, reg_s
-    reg_o = fleet()
-    srv_o = RoutedServer(matcher, reg_o, executor="overlapped",
-                         prefill_tokens_per_step=64, device=dev)
-    resp_o, overlapped = run(srv_o, reg_o, 0, "overlapped")
-    _, again = run(srv_o, reg_o, 100, "again")
-    for a, b in zip(resp_s, resp_o):
-        if a.expert != b.expert or not np.array_equal(a.tokens, b.tokens):
-            raise AssertionError(f"serial and overlapped paged tokens differ "
-                                 f"at uid {a.uid}")
-    for label, r in (("serial", serial), ("overlapped", overlapped)):
+    runs, resps, graphs = {True: {}, False: {}}, {}, {}
+    for capture, executor in RUNS:
+        label = f"{'graph' if capture else 'eager'} {executor}"
+        reg = fleet(capture)
+        srv = RoutedServer(matcher, reg, executor=executor,
+                           prefill_tokens_per_step=64, device=dev)
+        resps[label], r = run(srv, reg, 0, label)
+        check_blocks(label, r, HOST_BLOCKS["serve_paged"][executor])
         if not (r["prefix_dup_rows"] and r["pages_copied"]
                 and r["suffix_shapes"] and r["route_chunks"]
                 and r["prefill_tokens_computed"]
                 < r["prefill_tokens_submitted"]):
             raise AssertionError(f"{label}: a paged counter did not move: "
                                  f"{r}")
-    if not again["prefix_full_hits"]:
-        raise AssertionError(f"the repeat run hit no cached prefix: {again}")
+        runs[capture][executor] = r
+        if capture and executor == "overlapped":
+            _, again = run(srv, reg, 100, "again")
+            if not again["prefix_full_hits"]:
+                raise AssertionError(f"the repeat run hit no cached prefix: "
+                                     f"{again}")
+            n_pages = reg[0].backend.core.pool.n_pages
+            pool_bytes = sum(t.numel() * t.element_size()
+                             for t in reg[0].backend.core.kv_pool.values())
+        if capture:
+            graphs[executor] = graph_stats(
+                [reg[e].backend for e in range(len(reg))])
+        del srv, reg
+    same_tokens("serve_paged", {k: [(r.expert, r.tokens) for r in v]
+                                for k, v in resps.items()},
+                lambda a, b: a[0] == b[0] and np.array_equal(a[1], b[1]))
+    serial, resp_s = runs[True]["serial"], resps["graph serial"]
 
     # the same requests through the ring engines, serial: tokens and time
     # reported, not asserted (bf16 at full width: the packed paged
@@ -690,20 +799,19 @@ def serve_paged_phase(np, torch, dev, ops, shapes):
     # bucket, at the fullest live-slot count any step of that bucket had
     shapes["paged"] = {"rows": serial["decode_rows_max"],
                        "live": serial["live_slots_at_max_rows"],
-                       "n_pages": reg_o[0].backend.core.pool.n_pages,
-                       "page": 8, "n_logical": 32}
+                       "n_pages": n_pages, "page": 8, "n_logical": 32}
     return {"phase": "serve_paged", "config": cfg.name,
             "experts": len(ring), "requests": len(traffic),
             "max_new_tokens": 16, "kv": "paged", "page": 8, "max_len": 256,
             "chunk_len": 64, "prefill_tokens_per_step": 64,
-            "pool_pages_per_expert": reg_o[0].backend.core.pool.n_pages,
-            "pool_gb": sum(t.numel() * t.element_size()
-                           for t in reg_o[0].backend.core.kv_pool.values())
-            * len(ring) / 1e9,
+            "pool_pages_per_expert": n_pages,
+            "pool_gb": pool_bytes * len(ring) / 1e9,
             "traffic": {k: kinds.count(k) for k in sorted(set(kinds))},
             "tokens_equal_serial_overlapped": True,
-            "routes_equal_cpu": True,
-            "serial": serial, "overlapped": overlapped, "again": again,
+            "tokens_equal_graph_eager": True, "routes_equal_cpu": True,
+            "serial": serial, "overlapped": runs[True]["overlapped"],
+            "eager": runs[False], "again": again,
+            "graphs": graphs,
             "ring_serial_same_traffic": ring_run,
             "ring_equal_share_cohort": sum(cohort) / len(cohort),
             "ring_equal_share_all": sum(same) / len(same),
@@ -720,7 +828,10 @@ def breakdown_phase(np, torch, dev, shapes):
     wall time per step (host clock, synchronised, eager), device time per
     step (the same step captured once in a CUDA graph and replayed, so no
     host gap is timed), and the kernels one eager step launches, from
-    ``torch.profiler``. Device busy share = graph time / eager wall."""
+    ``torch.profiler``. Device busy share = graph time / eager wall. Then
+    the engine's own tick of such a wave, host-synchronised, through its
+    bucket's captured graph and eagerly (``engine_step``), on the ring and
+    on the paged layout (at serve_paged's largest decode bucket)."""
     eng, cfg = shapes["engine"], shapes["cfg"]
     model, params = eng.model, eng.params
     B, Sb, n = shapes["decode_rows"], 64, 20
@@ -734,8 +845,9 @@ def breakdown_phase(np, torch, dev, shapes):
 
     def step():
         # restart from the same position each call: the decode advances
-        # pos/t in the dict, the graph below replays a fixed position
-        cache["pos"], cache["t"] = pos0, t0_
+        # pos/t in place
+        cache["pos"].copy_(pos0)
+        cache["t"].copy_(t0_)
         return model.decode(params, cache, {"token": tok})[0]
 
     timed = step_times(torch, step, n)
@@ -746,14 +858,75 @@ def breakdown_phase(np, torch, dev, shapes):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     weight_bytes = sum(t.numel() * t.element_size() for t in
                        _leaves(params))
+    ps = shapes["paged"]
+    engine = engine_step(np, torch, dev, model, params, B, Sb, n,
+                         "decode_attention_kernel")
+    engine["paged"] = engine_step(
+        np, torch, dev, model, params, ps["rows"], Sb, n,
+        "decode_attention_kernel", kv_layout="paged", page_size=ps["page"],
+        chunk_len=64)
     return {"phase": "breakdown", "rows": B, "prompt_len": Sb,
-            "cache_len": shapes["max_len"], **timed,
+            "cache_len": shapes["max_len"], **timed, "engine": engine,
             "decode_attention_ms_per_step": attn_ms,
             "decode_attention_share_of_kernel_ms":
                 attn_ms / timed["profiler_kernel_ms_per_step"],
             "profiler_top_kernels_ms": [[k[:60], v] for k, v in top],
             "weight_gb": weight_bytes / 1e9,
             "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def engine_step(np, torch, dev, model, params, B, Sb, n, needle, **kw):
+    """The engine's own decode tick of one resident wave (B rows, prompts
+    of Sb tokens): wall ms per tick, host-synchronised, median of ``n``
+    ticks once the bucket's graph is captured (``graph``), and of an
+    engine with ``capture_decode=False`` (``eager``); from
+    ``torch.profiler`` over three replayed ticks, the kernels a tick
+    runs and the ms per launch of those whose name holds ``needle``
+    (None where the trace shows none)."""
+    from repro_torch.serve import ExpertEngine
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(SEED + 2)
+    prompts = list(rng.integers(0, model.cfg.vocab_size, size=(B, Sb))
+                   .astype(np.int32))
+    out = {"rows": B, "prompt_len": Sb}
+    for capture in (True, False):
+        eng = ExpertEngine(model, params, max_len=256, device=dev,
+                           capture_decode=capture, **kw)
+        eng.admit(list(range(B)), prompts, [n + 8] * B, defer=True)
+        for _ in range(2):            # eager first step; capture + replay
+            eng.tick(defer=True)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            eng.tick(defer=True)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        key = "graph" if capture else "eager"
+        out[f"{key}_wall_ms_per_step"] = statistics.median(walls)
+        out[f"{key}_wall_ms_runs"] = [min(walls), max(walls)]
+        if capture:
+            out["captured"] = eng.stats.decode_captured
+            out["capture_ms"] = eng.stats.decode_capture_ms
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    eng.tick(defer=True)
+                torch.cuda.synchronize()
+            kern = [ev for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA]
+            mine = [ev.time_range.elapsed_us() for ev in kern
+                    if needle in ev.name]
+            out["graph_kernels_per_step"] = len(kern) / 3
+            out["graph_kernel_ms_per_step"] = sum(
+                ev.time_range.elapsed_us() for ev in kern) / 3e3
+            out[f"{needle}_launches_per_step"] = len(mine) / 3
+            out[f"{needle}_us_per_launch"] = (sum(mine) / len(mine)
+                                              if mine else None)
+        del eng
+    out["graph_over_eager"] = (out["graph_wall_ms_per_step"]
+                               / out["eager_wall_ms_per_step"])
+    return out
 
 
 def step_times(torch, step, n):
@@ -882,19 +1055,20 @@ def serve_rwkv_phase(np, torch, dev, ops, shapes):
     rmodel = build_model(rcfg)
     ring = shapes["registry"]
     lmodel = shapes["engine"].model
-    registry = ExpertRegistry()
+    registry, eager = ExpertRegistry(), ExpertRegistry()
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     for e, (name, family, _) in enumerate(RWKV_FLEET):
         if family == "rwkv":
             gen = torch.Generator(device=dev).manual_seed(SEED + 30 + e)
-            params = rmodel.init(gen, device=dev)
+            model, params = rmodel, rmodel.init(gen, device=dev)
             trained_like(torch, params, gen)
-            registry.add(name, ExpertEngine(rmodel, params, max_len=256,
-                                            device=dev))
         else:
-            registry.add(name, ExpertEngine(lmodel, ring[e - 2].backend.params,
-                                            max_len=256, device=dev))
+            model, params = lmodel, ring[e - 2].backend.params
+        registry.add(name, ExpertEngine(model, params, max_len=256,
+                                        device=dev))
+        eager.add(name, ExpertEngine(model, params, max_len=256, device=dev,
+                                     capture_decode=False))
     torch.cuda.synchronize()
     rwkv_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
     engines = [registry[e].backend for e in range(len(registry))]
@@ -907,16 +1081,17 @@ def serve_rwkv_phase(np, torch, dev, ops, shapes):
                         max_new_tokens=16)
                 for u, (_, f, n) in enumerate(picks)]
 
-    # warm-up traffic of the same shapes on a server of its own
+    # warm-up: the same requests under other uids on a server of its own,
+    # so every decode bucket the timed runs reach is captured here
     RoutedServer(matcher, registry, executor="serial",
                  device=dev).serve(requests(10_000))
     want_routes = cpu_routes(np, torch, matcher, requests(0))
-    runs, tokens = {}, {}
-    for executor in ("serial", "overlapped"):
-        server = RoutedServer(matcher, registry, executor=executor,
-                              device=dev)
-        before = [(e.stats.host_blocks, e.stats.decode_steps)
-                  for e in engines]
+    runs, tokens = {True: {}, False: {}}, {}
+    for capture, executor in RUNS:
+        reg = registry if capture else eager
+        fleet = [reg[e].backend for e in range(len(reg))]
+        server = RoutedServer(matcher, reg, executor=executor, device=dev)
+        before = [e.stats.as_dict() for e in fleet]
         seen = []
         fine_calls = _record_route(server.router, seen)
         torch.cuda.synchronize()
@@ -927,7 +1102,7 @@ def serve_rwkv_phase(np, torch, dev, ops, shapes):
         dt = time.perf_counter() - t0
         launches = ops.launches()
         _unrecord_route(server.router)
-        label = f"serve_rwkv {executor}"
+        label = f"serve_rwkv {'graph' if capture else 'eager'} {executor}"
         chunks = route_chunks(label, fine_calls, launches)
         check_routes(label, want_routes, resps)
         if len(resps) != len(picks):
@@ -937,61 +1112,61 @@ def serve_rwkv_phase(np, torch, dev, ops, shapes):
             vocab = engines[names.index(r.expert)].model.cfg.padded_vocab
             if r.tokens.shape != (16,) or not (
                     (r.tokens >= 0) & (r.tokens < vocab)).all():
-                raise AssertionError(f"serve_rwkv {executor}: bad response "
-                                     f"{r}")
-        steps = [e.stats.decode_steps - b[1] for e, b in zip(engines, before)]
-        blocks = sum(e.stats.host_blocks - b[0]
-                     for e, b in zip(engines, before))
+                raise AssertionError(f"{label}: bad response {r}")
+        delta = engine_delta(fleet, before)
+        steps = [e.stats.decode_steps - b["decode_steps"]
+                 for e, b in zip(fleet, before)]
         r_steps = sum(s_ for s_, r in zip(steps, is_rwkv) if r)
         l_steps = sum(steps) - r_steps
+        check_blocks(label, delta, HOST_BLOCKS["serve_rwkv"][executor])
         if launches["wkv_step"] != rcfg.n_layers * r_steps:
             raise AssertionError(
-                f"serve_rwkv {executor}: wkv_step launched "
+                f"{label}: wkv_step launched "
                 f"{launches['wkv_step']} times for {r_steps} RWKV decode "
                 f"steps of {rcfg.n_layers} layers")
         if launches["decode_attention"] != lmodel.cfg.n_layers * l_steps:
             raise AssertionError(
-                f"serve_rwkv {executor}: decode_attention launched "
+                f"{label}: decode_attention launched "
                 f"{launches['decode_attention']} times for {l_steps} llama "
                 f"decode steps of {lmodel.cfg.n_layers} layers")
         if not chunks or launches["paged_decode_attention"]:
-            raise AssertionError(f"serve_rwkv {executor}: launches "
-                                 f"{launches} over {chunks} route chunks")
+            raise AssertionError(f"{label}: launches {launches} over "
+                                 f"{chunks} route chunks")
         routed = {n: sum(r.expert == n for r in resps) for n in names}
         # the (batch, length) buckets each engine ran: the warm-up served
         # the same traffic, so these are this run's
         buckets = {n: sorted({sb for _, sb in e.core._prefill_shapes})
-                   for n, e in zip(names, engines)}
+                   for n, e in zip(names, fleet)}
         for n, f, _ in RWKV_FLEET:
             if f == "rwkv" and (routed[n] < 6 or min(buckets[n]) > 16
                                 or max(buckets[n]) < 32):
                 raise AssertionError(
-                    f"serve_rwkv {executor}: {n} got {routed[n]} requests "
+                    f"{label}: {n} got {routed[n]} requests "
                     f"in prompt buckets {buckets[n]}")
         n_tok = sum(len(r.tokens) for r in resps)
-        tokens[executor] = [(r.expert, r.tokens) for r in resps]
-        runs[executor] = {
+        tokens[label] = [(r.expert, r.tokens) for r in resps]
+        runs[capture][executor] = {
             "seconds": dt, "req_per_s": len(resps) / dt,
             "generated_tok_per_s": n_tok / dt, "tokens": n_tok,
             "decode_steps_rwkv": r_steps, "decode_steps_llama": l_steps,
-            "host_blocks": blocks, "launches": launches,
+            **delta, "launches": launches,
             "route_chunks": chunks, "routed": routed,
             "prefill_buckets": buckets,
             "rwkv_decode_rows_max": max(
-                max(e.core._decode_shapes, default=0)
-                for e, r in zip(engines, is_rwkv) if r)}
-    if not all(a[0] == b[0] and np.array_equal(a[1], b[1])
-               for a, b in zip(tokens["serial"], tokens["overlapped"])):
-        raise AssertionError("serve_rwkv: serial and overlapped tokens "
-                             "differ")
-    rows = runs["serial"]["rwkv_decode_rows_max"]
+                max(e.core._graphs, default=0)
+                for e, r in zip(fleet, is_rwkv) if r)}
+    same_tokens("serve_rwkv", tokens,
+                lambda a, b: a[0] == b[0] and np.array_equal(a[1], b[1]))
+    rows = runs[True]["serial"]["rwkv_decode_rows_max"]
     return ({"phase": "serve_rwkv", "config": rcfg.name,
              "experts": {n: f for n, f, _ in RWKV_FLEET},
              "requests": len(picks), "max_new_tokens": 16,
              "kv": "ring", "max_len": 256, "rwkv_param_gb": rwkv_gb,
-             "tokens_equal": True, "routes_equal_cpu": True,
-             "serial": runs["serial"],
-             "overlapped": runs["overlapped"],
+             "tokens_equal": True, "tokens_equal_graph_eager": True,
+             "routes_equal_cpu": True,
+             "serial": runs[True]["serial"],
+             "overlapped": runs[True]["overlapped"], "eager": runs[False],
+             "graphs": graph_stats(engines),
              "kernel_shape": {"wkv_step": [rows, rcfg.n_heads, rcfg.dh]}},
             {"decode_rows": rows, "engine": engines[0], "cfg": rcfg})
 
@@ -1025,8 +1200,11 @@ def breakdown_rwkv_phase(np, torch, dev, rshapes):
                        _leaves(params))
     state_bytes = sum(cache[k].numel() * cache[k].element_size()
                       for k in ("S", "x_tm", "x_cm"))
+    del cache
+    engine = engine_step(np, torch, dev, model, params, B, Sb, n,
+                         "wkv_step")
     return {"phase": "breakdown_rwkv", "config": cfg.name, "rows": B,
-            "prompt_len": Sb, **timed,
+            "prompt_len": Sb, **timed, "engine": engine,
             "wkv_step_ms_per_step": wkv_ms,
             "wkv_step_launches_per_step": n_wkv,
             "wkv_step_ms_per_launch": wkv_ms / n_wkv if n_wkv else None,
@@ -1609,15 +1787,15 @@ def wkv_kernel_row(torch, dev, ops, gen, record, B):
 
 
 def _record_decode(core, seen):
-    """``core._paged_decode`` that also keeps, per step, the wave's rows
-    and its post-step ``pos``/``t`` (fresh tensors each step: nothing is
-    copied or synchronised while the path runs)."""
-    step = core._paged_decode
+    """``core._decode_step`` that also keeps, per step, the wave's rows
+    and copies of its post-step ``pos``/``t`` (device-to-device: nothing
+    is synchronised while the path runs)."""
+    step = core._decode_step
 
     def wrapped(w):
-        logits = step(w)
-        seen.append((w.tok.shape[1], w.pos, w.t))
-        return logits
+        tok = step(w)
+        seen.append((w.tok.shape[1], w.pos.clone(), w.t.clone()))
+        return tok
     return wrapped
 
 

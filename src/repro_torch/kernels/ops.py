@@ -34,8 +34,18 @@ def launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-__all__ = ["WRAPPERS", "cosine_fine", "cosine_fine_plain", "cosine_scores",
-           "cosine_scores_plain", "decode_attention",
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (wrapper name -> launches) to the counters. A CUDA
+    graph's replay launches the kernels its capture recorded without a
+    wrapper call to count them, so the graph adds what its capture
+    counted on every replay (and takes it back after the capture, which
+    launched nothing)."""
+    for name, n in counts.items():
+        WRAPPERS[name].launches += n
+
+
+__all__ = ["WRAPPERS", "add_launches", "cosine_fine", "cosine_fine_plain",
+           "cosine_scores", "cosine_scores_plain", "decode_attention",
            "decode_attention_plain", "decode_split",
            "expert_score", "expert_score_folded", "expert_score_plain",
            "expert_slices", "expert_split", "fold_bank", "launches",

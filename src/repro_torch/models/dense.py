@@ -8,8 +8,10 @@ each decode layer launches the hand-written ``decode_attention`` kernel
 on its updated ring cache, with ``q_pos = t`` shared across rows.
 
 Decode updates the KV cache in place (the reference returns a new
-cache; the port writes the one slot per layer into the existing buffers
-and returns the same dict), so a wave's cache is allocated once.
+cache; the port writes the one slot per layer into the existing buffers,
+advances ``pos`` and ``t`` in their own storage and returns the same
+dict), so a wave's cache is allocated once and a captured decode step
+(``serve/graphs.py``) replays on the same buffers.
 
 The paged protocol keeps the reference's pool layout ``(P1, L, page, KV,
 dh)``. Paged prefills scatter whole pages into the pool in place; each
@@ -235,8 +237,9 @@ class DecoderLM(BaseModel):
             x = _layer_decode(x, lp, t, cfg, write_attend)
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
         logits = self._unembed(params, x[:, 0])
-        cache["pos"] = kv_pos
-        cache["t"] = t + 1
+        # in place, as every leaf: a captured step replays on these buffers
+        cache["pos"].copy_(kv_pos)
+        t.add_(1)
         return logits, cache
 
     # ------------------------------------------------------------------

@@ -283,5 +283,5 @@ class RWKV6(BaseModel):
         cfg = self.cfg
         x = params["embed"][batch["token"].long()].to(dt(cfg.compute_dtype))
         x = self._run(params, x, cache, "step")
-        cache["t"] = cache["t"] + 1
+        cache["t"].add_(1)
         return self._unembed(params, x[:, 0]), cache

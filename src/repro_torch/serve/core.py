@@ -22,6 +22,11 @@ expert engine, plus the dispatch executors.
     device tensors. Nothing blocks until ``harvest()``, which copies all
     planes a completable row needs to the host in **one** device-to-host
     copy per wave per step.
+  * the decode step of each batch bucket is one ``DecodeGraph``
+    (``serve/graphs.py``): on CUDA a captured graph, replayed for every
+    wave at that bucket, as the reference compiles one executable per
+    decode bucket; eager on the CPU or with ``capture_decode=False``.
+    Prefill stays eager.
   * every such host-blocking copy increments ``EngineStats.host_blocks``.
 
 The dispatch executors decide *when* the host blocks:
@@ -44,6 +49,7 @@ import torch
 
 from ..device import resolve_device
 from ..obs.trace import NULL_TRACER
+from .graphs import DecodeGraph, tree_map
 from .kvcache import PagePool, PagePoolExhausted, PrefixCache, hash_chain
 
 
@@ -84,11 +90,17 @@ def bucket_for(n: int, buckets: Sequence[int]) -> int:
 class EngineStats:
     """Serving counters for one ``EngineCore``.
 
-    PyTorch runs eagerly and compiles nothing per shape, so
-    ``prefill_compiles`` / ``suffix_compiles`` / ``decode_compiles`` count
-    the distinct shape keys the engine has run — ``(Bb, Sb)`` for
-    prefill, ``(Bb, chunk index)`` for suffix prefill, ``Bb`` for decode
-    — the quantity the reference's executable counts bound.
+    ``decode_compiles`` counts the engine's ``DecodeGraph`` objects, one
+    per decode batch bucket run so far: on CUDA each holds one captured
+    graph (``decode_captured`` of them are captured so far; their
+    capture took ``decode_capture_ms`` of host time), as each of the
+    reference's holds one executable. Prefill runs eagerly and compiles
+    nothing per shape, so ``prefill_compiles`` / ``suffix_compiles``
+    count the distinct shape keys run — ``(Bb, Sb)`` for prefill, ``(Bb,
+    chunk index)`` for suffix prefill — the quantity the reference's
+    executable counts bound. ``decode_swaps`` counts ring waves' states
+    copied into a bucket's static buffers (the resident wave's copied
+    out first, where it still runs).
     ``host_blocks`` counts host-blocking device-to-host copies. Prefill
     accounting: ``prefill_tokens_submitted`` counts every prompt token
     clients sent, ``prefill_tokens_computed`` the tokens that went
@@ -111,6 +123,7 @@ class EngineStats:
         self.prefix_dup_rows = 0        # rows deduplicated inside a wave
         self.prefix_pages_shared = 0    # page refs shared instead of built
         self.pages_copied = 0           # copy-on-write page copies
+        self.decode_swaps = 0           # ring residency swaps
 
     @property
     def prefill_compiles(self) -> int:
@@ -122,7 +135,17 @@ class EngineStats:
 
     @property
     def decode_compiles(self) -> int:
-        return len(self._core._decode_shapes) if self._core else 0
+        return len(self._core._graphs) if self._core else 0
+
+    @property
+    def decode_captured(self) -> int:
+        return sum(g.graph is not None
+                   for g in self._core._graphs.values()) if self._core else 0
+
+    @property
+    def decode_capture_ms(self) -> float:
+        return sum(g.capture_ms
+                   for g in self._core._graphs.values()) if self._core else 0.0
 
     @property
     def jit_cache_entries(self) -> int:
@@ -144,9 +167,12 @@ class EngineStats:
             "prefix_dup_rows": self.prefix_dup_rows,
             "prefix_pages_shared": self.prefix_pages_shared,
             "pages_copied": self.pages_copied,
+            "decode_swaps": self.decode_swaps,
             "prefill_compiles": self.prefill_compiles,
             "suffix_compiles": self.suffix_compiles,
             "decode_compiles": self.decode_compiles,
+            "decode_captured": self.decode_captured,
+            "decode_capture_ms": self.decode_capture_ms,
             "jit_cache_entries": self.jit_cache_entries,
         }
 
@@ -189,7 +215,8 @@ class _Wave:
     done: Dict[int, List[bool]]
     cache: Any                          # ring: the model's cache tree,
     #   each leaf stacked on a leading E axis (dense: {k, v (E, L, Bb, C,
-    #   KV, dh), pos (E, C), t (E,)})
+    #   KV, dh), pos (E, C), t (E,)}); stale while the wave is resident in
+    #   its bucket's DecodeGraph, whose static state is then its own
     tok: Optional[torch.Tensor]         # (E, Bb, 1) last sampled token;
     #   None while prefill chunks are still pending (decode is gated)
     emitted: List[Any]                  # (E, Bb) planes, device or host
@@ -224,11 +251,12 @@ def _stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     return xs[0].unsqueeze(0) if len(xs) == 1 else torch.stack(xs)
 
 
-def _tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of equal structure."""
-    if isinstance(trees[0], dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
+def _in_place(given: torch.Tensor, got: torch.Tensor) -> None:
+    if got is not given:
+        raise RuntimeError(
+            "model.decode rebound a cache leaf: the decode step must write "
+            "every leaf of the cache it is given in place (a captured step "
+            "replays on fixed buffers)")
 
 
 class EngineCore:
@@ -239,7 +267,10 @@ class EngineCore:
     ``_materialize`` calls — per tick in sync mode (``defer=False``, the
     serial reference), or one batched copy per wave inside ``harvest()``
     in deferred mode. Runs on ``cuda`` unless ``device="cpu"``; the
-    experts' params must already live there.
+    experts' params must already live there. On CUDA each decode bucket's
+    step is a captured graph unless ``capture_decode=False`` (the
+    counterpart of ``jax.disable_jit``), which runs the same step eagerly;
+    the CPU always runs it eagerly.
     """
 
     def __init__(self, model, params_list: Sequence[Any], *,
@@ -248,7 +279,8 @@ class EngineCore:
                  kv_layout: str = "ring", page_size: int = 8,
                  pool_pages: Optional[int] = None,
                  chunk_len: Optional[int] = None,
-                 speculate_k: int = 0, mesh=None, device=None):
+                 speculate_k: int = 0, mesh=None, device=None,
+                 capture_decode: bool = True):
         if not params_list:
             raise ValueError("EngineCore needs at least one expert")
         if kv_layout not in ("ring", "paged"):
@@ -279,7 +311,10 @@ class EngineCore:
         self._finished: List[Tuple[int, Any, np.ndarray]] = []
         self._prefill_shapes: set = set()    # (Bb, Sb) run so far
         self._suffix_shapes: set = set()     # (Bb, chunk index k >= 1)
-        self._decode_shapes: set = set()     # Bb run so far
+        self.capture_decode = bool(capture_decode)
+        self._graphs: Dict[int, DecodeGraph] = {}   # Bb -> its step
+        self._graph_pool = None              # CUDA: one pool, one stream
+        self._graph_stream = None            #   for every bucket's graph
         # -- paged KV state (None in ring layout) ------------------------
         self.pool: Optional[PagePool] = None
         self.prefix_cache: Optional[PrefixCache] = None
@@ -374,7 +409,7 @@ class EngineCore:
                                        capacity=self.max_len)
             logits.append(lg)
             caches.append(c)
-        cache = _tree_map(lambda *leaves: _stack(leaves), *caches)
+        cache = tree_map(lambda *leaves: _stack(leaves), *caches)
         return _stack(logits), cache
 
     def _paged_prefill(self, toks: np.ndarray, stbl: np.ndarray
@@ -412,48 +447,51 @@ class EngineCore:
             logits.append(lg)
         return _stack(logits)
 
+    def _decode_step(self, w: "_Wave") -> torch.Tensor:
+        """One decode step of wave ``w`` through its bucket's
+        ``DecodeGraph`` (made at the bucket's first step). Returns the
+        new (E, Bb, 1) int32 token plane, a tensor of its own."""
+        Bb = w.tok.shape[1]
+        g = self._graphs.get(Bb)
+        if g is None:
+            capture = self.capture_decode and self.device.type == "cuda"
+            if capture and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._graph_stream = torch.cuda.Stream(self.device)
+            g = self._graphs[Bb] = DecodeGraph(
+                self, Bb, capture=capture, pool=self._graph_pool,
+                stream=self._graph_stream)
+        return g.step(w)
+
     def _decode(self, cache, tok: torch.Tensor) -> torch.Tensor:
-        """One decode step of a ring wave over the model's own cache tree
-        (nested dicts of (E, ...) tensors); the cache is updated in place.
-        A leaf the model wrote in place (its expert view comes back) stays
-        as it is; a leaf it returned anew is stacked again. Returns logits
-        (E, Bb, V)."""
-        self._decode_shapes.add(tok.shape[1])
-        logits, views, outs = [], [], []
+        """The body of a ring decode step over the model's own cache tree
+        (nested dicts of (E, ...) tensors), which the model writes in
+        place: every leaf it returns must be the view it was given. It
+        gets a copy of the dict of views, so a key it rebinds shows as a
+        new leaf and raises. Returns logits (E, Bb, V)."""
+        logits = []
         for e in range(self.n_experts):
-            ve = _tree_map(lambda a: a[e], cache)
-            # the model may rebind keys of the dict it is given: a copy
+            ve = tree_map(lambda a: a[e], cache)
             lg, out = self.model.decode(self.params[e],
-                                        _tree_map(lambda a: a, ve),
+                                        tree_map(lambda a: a, ve),
                                         {"token": tok[e]})
+            tree_map(_in_place, ve, out)
             logits.append(lg)
-            views.append(ve)
-            outs.append(out)
-        E = self.n_experts
-
-        def merge(stacked, *vo):
-            if all(o is v for v, o in zip(vo[:E], vo[E:])):
-                return stacked
-            return _stack(vo[E:])
-
-        cache.update(_tree_map(merge, cache, *views, *outs))
         return _stack(logits)
 
-    def _paged_decode(self, w: "_Wave") -> torch.Tensor:
-        """One decode step of a paged wave through its page table; the
-        pool is written in place, ``w.pos``/``w.t`` advance. Returns
-        logits (E, Bb, V)."""
-        self._decode_shapes.add(w.tok.shape[1])
-        logits, pos, ts = [], [], []
+    def _paged_decode(self, table: torch.Tensor, pos: torch.Tensor,
+                      t: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+        """The body of a paged decode step through page tables ``table``
+        (E, Bb, n_logical): the pool is written in place and ``pos`` (E,
+        C) / ``t`` (E,) advance in place. Returns logits (E, Bb, V)."""
+        logits = []
         for e in range(self.n_experts):
-            lg, _, p, t = self.model.paged_decode(
-                self.params[e], self._expert_pool(e), w.table[e], w.pos[e],
-                w.t[e], {"token": w.tok[e]}, page=self.page)
+            lg, _, p, te = self.model.paged_decode(
+                self.params[e], self._expert_pool(e), table[e], pos[e],
+                t[e], {"token": tok[e]}, page=self.page)
+            pos[e].copy_(p)
+            t[e].copy_(te)
             logits.append(lg)
-            pos.append(p)
-            ts.append(t)
-        w.pos = _stack(pos)
-        w.t = _stack(ts)
         return _stack(logits)
 
     def _copy_pages(self, copies: Mapping[int, Sequence[Tuple[int, int]]]
@@ -943,11 +981,9 @@ class EngineCore:
                 if w.sp_decode is None and self.tracer.enabled:
                     w.sp_decode = self.tracer.begin_device(
                         "wave.decode", wave=w.wave_id, Bb=w.tok.shape[1])
-                if self.kv_layout == "paged":
-                    logits = self._paged_decode(w)
-                else:
-                    logits = self._decode(w.cache, w.tok)
-                w.tok = self._sample(logits)
+                # a plane of its own: planes wait on the device until
+                # harvest, and the graph's static output is overwritten
+                w.tok = self._decode_step(w)
                 w.emitted.append(w.tok[..., 0])
                 w.steps_left -= 1
                 self.stats.decode_steps += 1
@@ -1004,6 +1040,8 @@ class EngineCore:
                     w.done[local][i] = True
             if w.steps_left <= 0 and all(all(d) for d in w.done.values()):
                 self._active.remove(w)
+                for g in self._graphs.values():
+                    g.release(w)
                 if self.kv_layout == "paged":
                     self._retire_paged(w)
 
@@ -1077,8 +1115,10 @@ class SerialExecutor(DispatchExecutor):
 class OverlappedExecutor(DispatchExecutor):
     """Prefills and decode ticks for *all* shards are enqueued before
     anything blocks; tokens stay on the device and the host blocks at
-    most once per wave per step, inside the batched harvest. (Separate
-    CUDA streams per shard are a later piece of port slice A7.)"""
+    most once per wave per step, inside the batched harvest. On CUDA each
+    decode tick replays its bucket's captured graph; prefill is eager,
+    and every shard issues on the one current stream (separate CUDA
+    streams per shard are port slice A7.2)."""
 
     name = "overlapped"
     defer = True

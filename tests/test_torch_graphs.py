@@ -1,0 +1,402 @@
+"""The decode step per (engine, decode batch bucket) — ``DecodeGraph``,
+the port's counterpart of the reference's ``EngineCore._decode_fn(Bb)``.
+
+On the CPU the step runs eagerly on the same static buffers a captured
+graph replays on the card, so the residency swaps of ring waves that
+share a bucket, the copy-out of every token plane and the paged
+``pos``/``t`` round trip are all exercised here. Ring, paged (chunked
+prefill) and mixed RWKV6 + dense ``RoutedServer``s, with two waves
+resident at one bucket at once, are held to the reference's on the same
+weights and requests: greedy tokens, expert and fine-class indices and
+``host_blocks`` equal, ``decode_compiles`` within the bucket bound, and a
+second identical serve adds no decode step object. The ``cuda`` cases
+(skipped without a card) hold captured graphs to the eager step on the
+card, count kernel launches through replays, and check that a body that
+synchronises inside the capture raises.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config
+from repro.core import ExpertRegistry, build_matcher, init_ae
+from repro.models import build_model
+from repro.serve import ExpertEngine, Request, RoutedServer
+from repro_torch import core as tcore
+from repro_torch import serve as tserve
+from repro_torch.bridge import to_torch
+from repro_torch.configs import get_config as tget
+from repro_torch.kernels import ops
+from repro_torch.models import build_model as tbuild
+from test_torch_rwkv import trained_like
+
+NAMES = ("a", "b")
+PER_EXPERT = 5
+MAX_LEN = 64
+
+
+@pytest.fixture(scope="module")
+def bank():
+    """A two-expert AE bank (seeded, untrained) in both packages, and
+    fingerprints chosen by their route: PER_EXPERT for each expert."""
+    rng = np.random.default_rng(3)
+    aes = [init_ae(jax.random.PRNGKey(30 + i)) for i in range(len(NAMES))]
+    data = [(rng.random((64, 784), dtype=np.float32), np.arange(64) % 3)
+            for _ in NAMES]
+    jm = build_matcher(aes, list(NAMES), data)
+    tm = tcore.ExpertMatcher(
+        to_torch(jax.device_get(jm.bank_params), device="cpu"),
+        to_torch(jax.device_get(jm.bank_states), device="cpu"), list(NAMES),
+        to_torch(np.asarray(jm.centroids), device="cpu"),
+        to_torch(np.asarray(jm.centroid_mask), device="cpu"))
+    cands = rng.random((256, 784), dtype=np.float32)
+    route = np.asarray(jm.assign_coarse(jnp.asarray(cands)))
+    picks = [np.flatnonzero(route == e)[:PER_EXPERT]
+             for e in range(len(NAMES))]
+    assert all(len(p) == PER_EXPERT for p in picks)
+    feats = cands[np.stack(picks, axis=1).ravel()]
+    return jm, tm, feats
+
+
+def _traffic(feats, seed, uid0=0):
+    """Requests alternating between the experts; prompts of 3-40 tokens
+    (length buckets 8-64: with ``chunk_len`` 16 the longer ones prefill
+    in chunks) and 3-6 new tokens, so waves run several decode steps."""
+    rng = np.random.default_rng(seed)
+    lens = (5, 12, 20, 28, 40, 3, 9, 17, 33, 6)
+    return [(uid0 + u, f, rng.integers(0, 300, size=lens[u % len(lens)])
+             .astype(np.int32), int(rng.integers(3, 7)))
+            for u, f in enumerate(feats)]
+
+
+@pytest.fixture(scope="module")
+def fleets(bank):
+    """JAX and port registries over the same bridged weights, one pair
+    per (archs, engine options), built once: the JAX engines keep their
+    compiled executables from one test to the next, and both sides serve
+    the same requests in the same order, so their caches and counters
+    stay alike."""
+    built = {}
+
+    def get(archs, **kw):
+        key = (archs, tuple(sorted(kw.items())))
+        if key not in built:
+            jreg, treg = ExpertRegistry(), tcore.ExpertRegistry()
+            for i, (name, arch) in enumerate(zip(NAMES, archs)):
+                jmod = build_model(get_config(arch).reduced(name=f"g-{name}"))
+                params = jax.device_get(jmod.init(jax.random.PRNGKey(40 + i)))
+                if jmod.cfg.family == "rwkv":
+                    params = trained_like(params, seed=i)
+                jreg.add(name, ExpertEngine(jmod, params, max_len=MAX_LEN,
+                                            **kw))
+                tmod = tbuild(tget(arch).reduced(name=f"g-{name}"))
+                treg.add(name, tserve.ExpertEngine(
+                    tmod, to_torch(params, device="cpu"), max_len=MAX_LEN,
+                    device="cpu", **kw))
+            built[key] = jreg, treg
+        return built[key]
+    return get
+
+
+COUNTED = ("host_blocks", "decode_steps")
+
+
+def _held_to_reference(bank, fleets, archs, executor, budget=0, **kw):
+    """Serve the same requests twice (fresh uids the second time) through
+    JAX's and the port's servers, ``max_batch`` 2: each expert's five
+    requests make waves of 2, 2 and 1 rows, and the two waves of bucket 2
+    decode side by side. Tokens, expert and class equal each time, and
+    equal ``host_blocks``; the repeat adds no decode step object."""
+    jm, tm, feats = bank
+    jreg, treg = fleets(archs, **kw)
+    jsrv = RoutedServer(jm, jreg, max_batch=2, executor=executor,
+                        prefill_tokens_per_step=budget)
+    tsrv = tserve.RoutedServer(tm, treg, max_batch=2, executor=executor,
+                               prefill_tokens_per_step=budget, device="cpu")
+    cores = [treg[e].backend.core for e in range(len(NAMES))]
+    runs = []
+    for uid0 in (0, 100):
+        before = [{k: (getattr(jreg[e].backend.stats, k),
+                       getattr(c.stats, k)) for k in COUNTED}
+                  for e, c in enumerate(cores)]
+        traffic = _traffic(feats, seed=1, uid0=uid0)
+        want = jsrv.serve([Request(u, f, p, m) for u, f, p, m in traffic])
+        got = tsrv.serve([tserve.Request(u, f, p, m)
+                          for u, f, p, m in traffic])
+        assert [r.uid for r in got] == [r.uid for r in want]
+        for g, w in zip(got, want):
+            assert (g.expert, g.fine_class) == (w.expert, w.fine_class), \
+                g.uid
+            np.testing.assert_array_equal(g.tokens, w.tokens,
+                                          err_msg=str(g.uid))
+        for e, c in enumerate(cores):
+            for k in COUNTED:
+                jb, tb = before[e][k]
+                assert getattr(c.stats, k) - tb == \
+                    getattr(jreg[e].backend.stats, k) - jb, (k, e)
+            assert set(c._graphs) == {2, 1}
+            assert c.stats.decode_compiles <= \
+                c.executable_bounds()["decode"]
+            assert c.stats.decode_captured == 0
+            assert c.stats.decode_capture_ms == 0.0
+        runs.append(got)
+    return runs, cores
+
+
+@pytest.mark.parametrize("executor", ["serial", "overlapped"])
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_dense_server_matches_reference(bank, fleets, layout, executor):
+    kw = {"kv_layout": layout}
+    if layout == "paged":
+        kw.update(chunk_len=16, budget=16)
+    (got, again), cores = _held_to_reference(
+        bank, fleets, ("llama3_2_1b", "smollm_135m"), executor, **kw)
+    if layout == "ring":
+        # two waves shared bucket 2: their states swapped in and out
+        assert all(c.stats.decode_swaps > 0 for c in cores)
+    else:
+        assert all(c.stats.decode_swaps == 0 for c in cores)
+        assert all(c.stats.suffix_compiles > 0 for c in cores)
+        for c in cores:
+            c.pool.check()
+    for g, a in zip(got, again):
+        np.testing.assert_array_equal(g.tokens, a.tokens)
+
+
+@pytest.mark.parametrize("executor", ["serial", "overlapped"])
+def test_mixed_rwkv_server_matches_reference(bank, fleets, executor):
+    (got, again), cores = _held_to_reference(
+        bank, fleets, ("rwkv6_7b", "llama3_2_1b"), executor)
+    assert cores[0].model.cfg.family == "rwkv"
+    assert all(c.stats.decode_swaps > 0 for c in cores)
+    for g, a in zip(got, again):
+        np.testing.assert_array_equal(g.tokens, a.tokens)
+
+
+# ---------------------------------------------------------------------------
+# The engine alone (no JAX)
+# ---------------------------------------------------------------------------
+
+
+def _engine(arch="llama3_2_1b", seed=0, device="cpu", **kw):
+    model = tbuild(tget(arch).reduced(name=f"ge-{arch}"))
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
+                        device=device)
+    return tserve.ExpertEngine(model, params, max_len=MAX_LEN, device=device,
+                               **kw)
+
+
+def _waves(seed=0, n=3):
+    """Three waves of two rows at bucket 2, 5-8 new tokens each."""
+    rng = np.random.default_rng(seed)
+    return [([2 * i, 2 * i + 1],
+             [rng.integers(0, 300, size=int(rng.integers(4, 14)))
+              for _ in range(2)], [5 + i, 8 - i]) for i in range(n)]
+
+
+def _run(eng, waves, *, defer):
+    """Admit every wave at once, then tick to the end; with ``defer``
+    nothing is harvested until every wave has stepped its last."""
+    for uids, prompts, max_new in waves:
+        eng.admit(uids, prompts, max_new, defer=defer)
+    while eng.n_active:
+        if not eng.tick(defer=defer):
+            eng.harvest()
+    if defer:
+        eng.harvest()
+    return dict(eng.poll())
+
+
+def test_token_planes_do_not_alias_the_static_output():
+    """Overlapped: waves of more than one step keep every plane on the
+    device until harvest. Each plane is copied out of the step's static
+    output, so the next step cannot overwrite it: overlapped tokens equal
+    serial tokens, and each wave's tokens equal the wave decoded alone."""
+    waves = _waves()
+    serial = _run(_engine(), waves, defer=False)
+    eng = _engine()
+    over = _run(eng, waves, defer=True)
+    assert over.keys() == serial.keys()
+    for u in serial:
+        np.testing.assert_array_equal(over[u], serial[u], err_msg=str(u))
+    # not a vacuous check: some row emits different tokens over its steps
+    assert any(len(set(s.tolist())) > 1 for s in serial.values())
+    alone = {}
+    for w in waves:
+        alone.update(_run(_engine(), [w], defer=False))
+    for u in serial:
+        np.testing.assert_array_equal(alone[u], serial[u], err_msg=str(u))
+    st = eng.stats
+    assert st.decode_compiles == 1 and st.decode_swaps > 0
+    assert eng.core._graphs[2].resident is None     # every wave retired
+
+
+def test_swap_copies_the_resident_state_out_and_the_newcomer_in():
+    """Two waves at one bucket: the first is adopted (its cache tensors
+    become the static state), the second swaps in, and the first then
+    holds its own copy of its live state."""
+    eng = _engine(seed=1)
+    (u0, p0, m0), (u1, p1, m1) = _waves(seed=2, n=2)
+    eng.admit(u0, p0, m0, defer=True)
+    core = eng.core
+    w0 = core._active[0]
+    eng.tick(defer=True)
+    g = core._graphs[2]
+    assert g.state is w0.cache and g.resident is w0
+    eng.admit(u1, p1, m1, defer=True)
+    w1 = core._active[1]
+    t0 = int(g.state["t"][0])
+    eng.tick(defer=True)                 # w0 replays, then w1 swaps in
+    assert g.resident is w1 and w0.cache is not g.state
+    assert int(w0.cache["t"][0]) == t0 + 1
+    assert int(g.state["t"][0]) == int(w1.cache["t"][0]) + 1
+    assert core.stats.decode_swaps == 1
+
+
+def test_paged_step_copies_pos_and_t_back_to_the_wave():
+    eng = _engine(seed=3, kv_layout="paged", page_size=8)
+    (u0, p0, m0), (u1, p1, m1) = _waves(seed=4, n=2)
+    eng.admit(u0, p0, m0, defer=True)
+    eng.admit(u1, p1, m1, defer=True)
+    w0, w1 = eng.core._active
+    t = [int(w.t[0]) for w in (w0, w1)]
+    eng.tick(defer=True)
+    assert [int(w.t[0]) for w in (w0, w1)] == [t[0] + 1, t[1] + 1]
+    for w, tt in ((w0, t[0]), (w1, t[1])):
+        assert int(w.pos[0, tt % MAX_LEN]) == tt
+    g = eng.core._graphs[2]
+    assert w0.pos.data_ptr() != g.pos.data_ptr()
+    assert eng.stats.decode_swaps == 0
+
+
+def test_a_decode_that_rebinds_a_cache_leaf_raises():
+    """The captured step replays on fixed buffers, so the engine refuses
+    a model whose decode returns a new tensor for a cache leaf."""
+    eng = _engine(seed=5)
+    model = eng.model
+    decode = model.decode
+
+    def rebinding(params, cache, batch):
+        logits, cache = decode(params, cache, batch)
+        cache["t"] = cache["t"] + 0
+        return logits, cache
+
+    (u0, p0, m0), = _waves(n=1)
+    eng.admit(u0, p0, m0)
+    model.decode = rebinding
+    with pytest.raises(RuntimeError, match="in place"):
+        eng.tick()
+
+
+def test_add_launches_adds_and_takes_back():
+    before = ops.launches()
+    ops.add_launches({"decode_attention": 3, "wkv_step": 2})
+    after = ops.launches()
+    assert after["decode_attention"] == before["decode_attention"] + 3
+    assert after["wkv_step"] == before["wkv_step"] + 2
+    ops.add_launches({"decode_attention": -3, "wkv_step": -2})
+    assert ops.launches() == before
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA graph has no CPU mode")
+    return torch.device("cuda")
+
+
+#: (arch, layout, the kernel every decode layer launches)
+CARD_CASES = [("llama3_2_1b", "ring", "decode_attention"),
+              ("llama3_2_1b", "paged", "paged_decode_attention"),
+              ("rwkv6_7b", "ring", "wkv_step")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layout,kernel", CARD_CASES)
+def test_cuda_graph_tokens_equal_eager_and_launches_count_replays(
+        cuda, arch, layout, kernel):
+    """Three waves at bucket 2 (swaps on the ring) through captured
+    graphs, and through the eager step on the same weights: equal tokens,
+    one graph captured, and ``kernel`` counted n_layers x steps with the
+    replays."""
+    waves = _waves(seed=6)
+    out = {}
+    for capture in (True, False):
+        eng = _engine(arch, seed=7, device=cuda, kv_layout=layout,
+                      capture_decode=capture)
+        steps0 = eng.stats.decode_steps
+        ops.reset_launches()
+        out[capture] = _run(eng, waves, defer=True)
+        torch.cuda.synchronize()
+        steps = eng.stats.decode_steps - steps0
+        assert ops.launches()[kernel] == eng.model.cfg.n_layers * steps
+        assert eng.stats.decode_compiles == 1
+        assert eng.stats.decode_captured == int(capture)
+    for u in out[False]:
+        np.testing.assert_array_equal(out[True][u], out[False][u],
+                                      err_msg=str(u))
+    cpu = _engine(arch, seed=7, kv_layout=layout)
+    cpu.core.params = [_to(eng.params, "cpu")]
+    want = _run(cpu, waves, defer=False)
+    for u in want:
+        np.testing.assert_array_equal(out[True][u], want[u], err_msg=str(u))
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+#: run in a process of its own: a capture that fails leaves its CUDA
+#: context unfit for the tests that follow
+SYNCING_CAPTURE = """
+import numpy as np, torch
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.serve import ExpertEngine
+model = build_model(get_config("llama3_2_1b").reduced(name="sync"))
+params = model.init(torch.Generator(device="cuda").manual_seed(8),
+                    device="cuda")
+eng = ExpertEngine(model, params, max_len=64, device="cuda")
+decode = model.decode
+def syncing(params, cache, batch):
+    logits, cache = decode(params, cache, batch)
+    float(logits.sum().item())
+    return logits, cache
+model.decode = syncing
+rng = np.random.default_rng(0)
+eng.admit([0, 1], [rng.integers(0, 300, size=9) for _ in range(2)], [6, 6],
+          defer=True)
+eng.tick(defer=True)
+try:
+    eng.tick(defer=True)
+except RuntimeError as e:
+    print("RAISED", eng.stats.decode_captured, type(e).__name__)
+else:
+    print("NO ERROR")
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_a_body_that_syncs_inside_the_capture_raises(cuda):
+    """The first step runs eagerly (a sync is allowed there); the second
+    captures, where a host sync is refused: the tick raises, and no
+    eager step stands in for the graph."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    out = subprocess.run([sys.executable, "-c", SYNCING_CAPTURE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[:2] == ["RAISED", "0"], out.stdout
