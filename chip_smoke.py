@@ -93,6 +93,32 @@ Phases, each printing one JSON line:
    ring row adds a long-ring case (B = 1, 4000 of 4096 slots live) beside
    SDPA.
 
+9. train_bank — the paper's protocol on the card: the six generators at
+   their Table 1 counts (``load_benchmark``), one ``fit_ae`` and one
+   ``fit_mlp`` step from one init on the card and on the CPU (leaves at
+   rtol 1e-5 where the gradient is at least 1e-5, within the step's
+   bound elsewhere; the pre-BN biases' gradients below 1e-6 on both),
+   ``train_bank`` on the server splits at the paper's recipe (45 epochs,
+   batch 256, lr 1e-2 decayed x0.1 every 15 epochs; seconds per AE,
+   steps/s), ``build_matcher(MatcherConfig(use_kernel=True))`` with the
+   class centroids, every (dataset, client) split routed as one call
+   through a card ``Router`` (``expert_score`` and ``cosine_fine`` once
+   per 256-row route chunk, nothing else) and through a CPU Router over
+   a copy of the bank: every (expert, fine class) equal but for near
+   ties (the two choices' CPU scores within rtol 2e-5, counted); mean
+   coarse accuracy > 0.9 on each client split, ``mnist`` fine accuracy
+   > twice chance; ``assign_coarse`` on each whole split (one
+   ``expert_score`` launch at up to 11274 rows) against the plain
+   version, and the kernel timed on the trained bank at B 256 and at the
+   largest split; then ``train_mlp`` on the same splits and its accuracy.
+10. train_lm — 20 ``Trainer`` steps of full-width bf16 ``llama3_2_1b``
+   (remat, 2 microbatches, clip 1.0) and 10 of ``rwkv6_7b`` at published
+   widths cut to 4 layers, on ``synthetic_token_stream`` at seq 128 x
+   batch 8: ms a step (median of the last 10), tokens/s, 6 x params x
+   tokens against the bf16 peak, peak memory; losses finite and falling;
+   no kernel launched. Then one ``make_train_step`` of each, reduced and
+   f32, on the card against the CPU: loss, gradients and updated params.
+
 The reference phase (2) also runs a reduced f32 ``rwkv6_7b`` expert
 (``ssm_chunk`` 16) on the card and on the CPU, through both of its
 prefill branches: logits must agree and greedy tokens be equal.
@@ -103,7 +129,7 @@ graphs captured, host ms of the captures, swaps).
 
 Then a summary line ``{"kernels": [...], "launch_floor_ms": ...}`` (rows
 3-5 with ``ms_in_graph_step``, their time per launch inside the
-engine's replayed step), the
+engine's replayed step; rows 1-2 with ``launches_train_bank``), the
 raw ``nvidia-smi`` name and power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result, as it does without a CUDA device.
@@ -111,6 +137,7 @@ non-zero and prints no result, as it does without a CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -188,6 +215,17 @@ def main() -> int:
                       if key.endswith("_us_per_launch"))
             k["ms_in_graph_step"] = None if us is None else us / 1e3
             k["graph_step_rows"] = eng["rows"]
+    # the training phases, on a card freed of the serve fleets
+    shapes.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bank = train_bank_phase(np, torch, dev, ops, make_timers(torch, dev)[1])
+    emit(bank)
+    emit(train_lm_phase(np, torch, dev, ops))
+    for k in kernels:
+        if k["name"] in bank["route_launches"]:
+            # launches while routing every client split (train_bank)
+            k["launches_train_bank"] = bank["route_launches"][k["name"]]
     emit({"kernels": kernels, "launch_floor_ms": min(floor),
           "launch_floor_ms_runs": floor,
           "launch_floor_call": "one-element float32 add_, 8 bytes"})
@@ -420,6 +458,8 @@ def cohort_traffic(np, rng, vocab, *, n_cohorts, per_cohort, head, own,
 def _tree(node, fn):
     if isinstance(node, dict):
         return {k: _tree(v, fn) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_tree(v, fn) for v in node)
     return fn(node)
 
 
@@ -1221,12 +1261,11 @@ def breakdown_rwkv_phase(np, torch, dev, rshapes):
 # ---------------------------------------------------------------------------
 
 
-def kernel_phase(np, torch, dev, ops, shapes):
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import build
-
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+def make_timers(torch, dev):
+    """(device_ms, record): ``device_ms(fn)`` is the median device time of
+    one call with L2 flushed before each; ``record`` holds a kernel's
+    result to its plain version's and times the kernel, the plain
+    version and a library yardstick, as a summary row."""
     flush_buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
                             device=dev)
 
@@ -1293,6 +1332,17 @@ def kernel_phase(np, torch, dev, ops, shapes):
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                 "library_call": library_call, "shape": shape,
                 "l2": "flushed before every call"}
+
+    return device_ms, record
+
+
+def kernel_phase(np, torch, dev, ops, shapes):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    device_ms, record = make_timers(torch, dev)
 
     # the launch floor: the least a flushed launch reads here
     one = torch.zeros(1, device=dev)
@@ -1786,6 +1836,544 @@ def wkv_kernel_row(torch, dev, ops, gen, record, B):
     return row
 
 
+# ---------------------------------------------------------------------------
+# train_bank: the paper's protocol, trained on the card
+# ---------------------------------------------------------------------------
+
+#: the paper's Sec. 4 recipe (the trainers' defaults, stated)
+RECIPE = {"epochs": 45, "batch_size": 256, "base_lr": 1e-2,
+          "lr_decay_epochs": 15}
+#: samples per dataset: None is each generator's Table 1 count
+N_PER_DATASET = None
+#: one optimizer step, card against CPU (tests/test_torch_trainer.py):
+#: rtol 1e-5 where |clipped grad| >= GRAD_FLOOR, else within the step's
+#: bound lr; the pre-BN biases' gradients below PRE_BN_GRAD instead
+STEP_RTOL, STEP_ATOL, GRAD_FLOOR, PRE_BN_GRAD = 1e-5, 1e-7, 1e-5, 1e-6
+#: a route that differs from the CPU Router's must be a near tie: the two
+#: choices' CPU scores within this relative distance
+ROUTE_RTOL = 2e-5
+CLIENTS = ("client_a", "client_b")
+
+
+def train_bank_phase(np, torch, dev, ops, record):
+    """Six generators at their Table 1 counts; the bank and the MLP
+    baseline trained on the server splits at the paper's recipe; every
+    (dataset, client) split routed through a card Router and held to a
+    CPU Router over a copy of the bank."""
+    from repro_torch.core import (MatcherConfig, build_matcher, train_bank,
+                                  train_mlp, trainer)
+    from repro_torch.core import mlp_baseline as tmlp
+    from repro_torch.data import load_benchmark
+
+    t0 = time.perf_counter()
+    bench = load_benchmark(n_per_dataset=N_PER_DATASET, seed=SEED)
+    data_s = time.perf_counter() - t0
+    names = list(bench)
+    first = first_steps(np, torch, dev, bench)
+
+    # train_bank's AEs, each timed: train_ae wrapped where train_bank
+    # calls it
+    per_ae, inner = [], trainer.train_ae
+
+    def timed(x, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(x, **kw)
+        torch.cuda.synchronize()
+        steps = kw["epochs"] * (len(x) // min(kw["batch_size"], len(x)))
+        per_ae.append({"seconds": time.perf_counter() - t, "rows": len(x),
+                       "steps": steps, "seed": kw["seed"]})
+        if float(out[1]["count"]) != steps:
+            raise AssertionError(f"train_bank: {steps} steps, BN count "
+                                 f"{float(out[1]['count'])}")
+        return out
+
+    trainer.train_ae = timed
+    try:
+        aes, got_names = train_bank(
+            [(n, bench[n]["server"][0]) for n in names], device=dev,
+            **RECIPE)
+    finally:
+        trainer.train_ae = inner
+    if got_names != names:
+        raise AssertionError(f"train_bank: names {got_names}")
+    bank_s = sum(a["seconds"] for a in per_ae)
+    bank_steps = sum(a["steps"] for a in per_ae)
+    # one more epoch of the mnist AE's loop, profiled: its device share
+    prof = ae_epoch_profile(np, torch, dev, aes[names.index("mnist")],
+                            bench["mnist"]["server"][0])
+    matcher = build_matcher(aes, names, [bench[n]["server"] for n in names],
+                            MatcherConfig(use_kernel=True), device=dev)
+    routed = route_splits(np, torch, ops, matcher, bench)
+    whole = whole_splits(torch, ops, matcher, bench, record)
+
+    # the MLP-softmax baseline: which dataset a row came from
+    xs = np.concatenate([bench[n]["server"][0] for n in names])
+    ys = np.concatenate([np.full(len(bench[n]["server"][0]), i, np.int32)
+                         for i, n in enumerate(names)])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mp, mst = train_mlp(xs, ys, n_classes=len(names), device=dev, **RECIPE)
+    torch.cuda.synchronize()
+    mlp_s = time.perf_counter() - t
+    mlp_steps = RECIPE["epochs"] * (len(xs) // RECIPE["batch_size"])
+    mlp_acc = {}
+    for c in CLIENTS:
+        accs = [float((tmlp.predict(mp, mst, torch.from_numpy(
+            bench[n][c][0]).to(dev)).cpu().numpy() == i).mean())
+            for i, n in enumerate(names)]
+        mlp_acc[c] = {"mean": float(np.mean(accs)),
+                      "per_dataset": dict(zip(names, accs))}
+
+    chance2 = 2.0 / (int(bench["mnist"]["server"][1].max()) + 1)
+    for c in CLIENTS:
+        if not routed["coarse_acc"][c]["mean"] > 0.9:
+            raise AssertionError(f"train_bank: mean coarse accuracy on {c} "
+                                 f"{routed['coarse_acc'][c]}")
+        if not routed["mnist_fine_acc"][c] > chance2:
+            raise AssertionError(f"train_bank: mnist fine accuracy on {c} "
+                                 f"{routed['mnist_fine_acc'][c]} <= "
+                                 f"{chance2}")
+    return {"phase": "train_bank", "recipe": RECIPE,
+            "n_per_dataset": N_PER_DATASET or "Table 1 counts",
+            "rows": {n: {s: len(bench[n][s][0]) for s in bench[n]}
+                     for n in names},
+            "data_s": data_s, "first_step": first,
+            "ae": dict(zip(names, per_ae)), "bank_s": bank_s,
+            "bank_steps": bank_steps,
+            "bank_steps_per_s": bank_steps / bank_s,
+            "ae_epoch_profile": prof, "mlp_s": mlp_s, "mlp_steps": mlp_steps,
+            "mlp_steps_per_s": mlp_steps / mlp_s, "mlp_acc": mlp_acc,
+            "mnist_fine_bar": chance2, **routed, "whole_split": whole}
+
+
+def ae_epoch_profile(np, torch, dev, ae_, x):
+    """One epoch of ``fit_ae`` from a trained AE (a copy), timed and then
+    profiled: wall ms a step, kernels and their device ms a step, and the
+    device's busy share of the step."""
+    from repro_torch.core.trainer import fit_ae
+    from repro_torch.optim import adamw_init
+    p = _tree(ae_[0], lambda t: t.clone())
+    st = _tree(ae_[1], lambda t: t.clone())
+    steps = len(x) // RECIPE["batch_size"]
+
+    def epoch():
+        fit_ae(x, p, st, adamw_init(p), epochs=1,
+               batch_size=RECIPE["batch_size"])
+
+    epoch()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    epoch()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3 / steps
+    prof = profile_kernels(torch, epoch)
+    return {"steps": steps, "wall_ms_per_step": wall,
+            "kernels_per_step": prof["kernels"] / steps,
+            "kernel_ms_per_step": prof["kernel_ms"] / steps,
+            "busy_share": prof["kernel_ms"] / steps / wall,
+            "top_kernels_ms_per_epoch": prof["top_kernels_ms"]}
+
+
+def first_steps(np, torch, dev, bench):
+    """One ``fit_ae`` and one ``fit_mlp`` step (256 ``mnist`` rows) from
+    one CPU init, on the card and on the CPU: BN statistics at rtol 1e-5
+    and every parameter leaf as ``step_agrees`` holds it, but the pre-BN
+    biases, whose gradients must be below 1e-6 on both devices (zero in
+    exact arithmetic; AdamW's first step turns their noise into a full
+    step)."""
+    from repro_torch.bridge import to_numpy
+    from repro_torch.core import autoencoder as tae
+    from repro_torch.core import mlp_baseline as tmlp
+    from repro_torch.core.trainer import fit_ae, fit_mlp
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import value_and_grad
+
+    x, y = (a[:256] for a in bench["mnist"]["server"])
+    n_cls = int(y.max()) + 1
+    out = {}
+    for name, init, fit, loss, pre_bn, data in (
+            ("ae", lambda: tae.init_ae(SEED, device="cpu"), fit_ae,
+             tae.loss_fn, "b_enc", (x,)),
+            ("mlp", lambda: tmlp.init_mlp(SEED, 784, n_cls, device="cpu"),
+             fit_mlp, tmlp.loss_fn, "b", (x, y))):
+        p0, s0 = init()
+        res, grads = {}, {}
+        for where in ("cpu", dev):
+            p = _tree(p0, lambda t: t.to(where))
+            st = _tree(s0, lambda t: t.to(where))
+            args = [torch.from_numpy(np.asarray(a)).to(where) for a in data]
+            _, grads[str(where)] = value_and_grad(loss, p, st, *args)
+            res[str(where)] = to_numpy(fit(*data, p, st, adamw_init(p),
+                                           epochs=1, batch_size=256)[:2])
+        gflat = {k: _flat(to_numpy(g)) for k, g in grads.items()}
+        for k, g in gflat.items():
+            worst = max(float(np.abs(v).max()) for path, v in g.items()
+                        if path.split("/")[-1] == pre_bn)
+            if not worst < PRE_BN_GRAD:
+                raise AssertionError(f"first step {name} on {k}: pre-BN "
+                                     f"bias gradient {worst}")
+        (pc, sc), (pd, sd) = res["cpu"], res[str(dev)]
+        sd, worst_bn = _flat(sd), 0.0
+        for path, want in _flat(sc).items():
+            if not np.allclose(sd[path], want, rtol=STEP_RTOL,
+                               atol=STEP_ATOL):
+                raise AssertionError(f"first step {name}: BN {path} differs")
+            worst_bn = max(worst_bn, float(np.abs(sd[path] - want).max()))
+        out[name] = {"params": step_agrees(
+            np, _flat(pd), _flat(pc), _flat(to_numpy(p0)), gflat["cpu"],
+            1.0, RECIPE["base_lr"], skip=pre_bn, label=f"first step {name}"),
+            "bn_max_abs_err": worst_bn,
+            "pre_bn_grad_max": {k: max(float(np.abs(v).max())
+                                       for path, v in g.items()
+                                       if path.split("/")[-1] == pre_bn)
+                                for k, g in gflat.items()}}
+    return out
+
+
+def step_agrees(np, got, want, p0, grad, scale, lr, skip, label):
+    """Flat leaves after one AdamW step: rtol 1e-5 (atol 1e-7) where the
+    clipped gradient ``grad * scale`` is at least GRAD_FLOOR (AdamW's
+    first step, ``lr * g / (|g| + 1e-8)``, is insensitive to g's rounding
+    there), else moved from ``p0`` by at most ``lr``; leaves named
+    ``skip`` are left out. Returns the worst error and the share held at
+    rtol."""
+    worst, held, n = 0.0, 0, 0
+    for path, w in want.items():
+        if path.split("/")[-1] == skip:
+            continue
+        gf = got[path].astype(np.float32)
+        wf = w.astype(np.float32)
+        big = np.abs(grad[path].astype(np.float32) * scale) >= GRAD_FLOOR
+        if not np.allclose(gf[big], wf[big], rtol=STEP_RTOL, atol=STEP_ATOL):
+            raise AssertionError(f"{label}: {path} differs, max "
+                                 f"{np.abs(gf - wf)[big].max()}")
+        p = p0[path].astype(np.float32)
+        if not (np.abs(gf - p) <= lr * (1 + STEP_RTOL)
+                + np.spacing(np.abs(p))).all():
+            raise AssertionError(f"{label}: {path} moved beyond lr")
+        if big.any():
+            worst = max(worst, float(np.abs(gf - wf)[big].max()))
+        held, n = held + int(big.sum()), n + big.size
+    return {"max_abs_err": worst, "share_at_rtol": held / n,
+            "tol": f"rtol {STEP_RTOL} atol {STEP_ATOL} where |clipped "
+                   f"grad| >= {GRAD_FLOOR}, else |step| <= lr"}
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k in tree
+                for k2, v2 in _flat(tree[k], f"{prefix}/{k}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in _flat(v, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+def route_splits(np, torch, ops, matcher, bench):
+    """Each (dataset, client) split routed as one ``Router.route`` call on
+    the card (a fresh router: 256-row chunks, all misses), the counts
+    reset just before and read just after: ``expert_score`` and
+    ``cosine_fine`` once per route chunk and no other kernel. Then the
+    same split through a CPU Router over a copy of the bank: each
+    (expert, fine class) equal, but for near ties
+    (``check_near_ties``)."""
+    from repro_torch.serve.router import Router
+    names = matcher.names
+    cpu = cpu_matcher(matcher)
+    acc = {c: {} for c in CLIENTS}
+    fine = {}
+    launches = {"expert_score": 0, "cosine_scores": 0}
+    splits, ties, route_s, rows = [], 0, 0.0, 0
+    for c in CLIENTS:
+        for i, n in enumerate(names):
+            x, y = bench[n][c]
+            router = Router(matcher)
+            seen = []
+            chunks = _record_route(router, seen)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t = time.perf_counter()
+            res = router.route(x)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            got = ops.launches()
+            _unrecord_route(router)
+            label = f"train_bank {n}/{c}"
+            k = route_chunks(label, chunks, got)
+            if any(v for name, v in got.items() if name not in launches):
+                raise AssertionError(f"{label}: other kernels ran {got}")
+            if len(seen) != 1 or seen[0][1]:
+                raise AssertionError(f"{label}: {len(seen)} route calls")
+            want = Router(cpu).route(x)
+            ties += check_near_ties(np, torch, cpu, x, res, want, label)
+            acc[c][n] = float((res.coarse[:, 0] == i).mean())
+            if n == "mnist":
+                fine[c] = float((res.fine == y).mean())
+            for name in launches:
+                launches[name] += got[name]
+            route_s += dt
+            rows += len(x)
+            splits.append({"split": f"{n}/{c}", "rows": len(x),
+                           "route_chunks": k, "seconds": dt})
+    return {"coarse_acc": {c: {"mean": float(np.mean(list(acc[c].values()))),
+                               "per_dataset": acc[c]} for c in CLIENTS},
+            "mnist_fine_acc": fine, "routes_equal_cpu": True,
+            "route_near_ties": ties, "route_launches": launches,
+            "route_s": route_s, "routed_rows": rows,
+            "rows_per_s": rows / route_s, "splits": splits}
+
+
+def check_near_ties(np, torch, cpu, x, got, want, label):
+    """Rows whose card (expert, fine class) differ from the CPU Router's
+    must be near ties there: the CPU's scores of the two experts within
+    ROUTE_RTOL of each other (or, for one expert, the two classes'
+    cosines within ROUTE_RTOL). Returns how many rows differed."""
+    ge, we = got.coarse[:, 0], want.coarse[:, 0]
+    bad = np.nonzero((ge != we) | (got.fine != want.fine))[0]
+    for r in bad:
+        xr = torch.from_numpy(x[r:r + 1])
+        if ge[r] != we[r]:
+            s = cpu.coarse_scores(xr)[0]
+            a, b = float(s[ge[r]]), float(s[we[r]])
+            near = abs(a - b) <= ROUTE_RTOL * abs(b)
+        else:
+            s = cpu.fine_scores(xr, torch.tensor([int(we[r])]))[0]
+            a, b = float(s[got.fine[r]]), float(s[want.fine[r]])
+            near = abs(a - b) <= ROUTE_RTOL
+        if not near:
+            raise AssertionError(
+                f"{label}: row {r} routes to ({ge[r]}, {got.fine[r]}) on "
+                f"the card and ({we[r]}, {want.fine[r]}) on the CPU, "
+                f"scores {a} vs {b}")
+    return len(bad)
+
+
+def whole_splits(torch, ops, matcher, bench, record):
+    """``assign_coarse`` on each whole (dataset, client) split: one
+    ``expert_score`` launch at B = the split's rows (up to 11274, the
+    ``nlos`` splits), against the plain version on the same card inputs:
+    scores at rtol 2e-5 (atol 1e-6), top-1 experts equal but for near
+    ties. Then the kernel timed against its plain version and a library
+    yardstick on the trained bank at a route chunk's rows (B 256) and
+    at the largest split's."""
+    folded = ops.fold_bank(matcher.bank_params, matcher.bank_states)
+    worst, ties, biggest = 0.0, 0, None
+    for c in CLIENTS:
+        for n in matcher.names:
+            x = torch.from_numpy(bench[n][c][0]).to(matcher.device)
+            ops.reset_launches()
+            got = matcher.assign_coarse(x)
+            if ops.launches()["expert_score"] != 1:
+                raise AssertionError(f"whole split {n}/{c}: "
+                                     f"{ops.launches()}")
+            scores = ops.expert_score_folded(folded, x)
+            want = ops.expert_score_plain(folded, x)
+            if not torch.allclose(scores, want, rtol=2e-5, atol=1e-6):
+                raise AssertionError(f"whole split {n}/{c}: scores differ "
+                                     "from the plain version")
+            worst = max(worst, (scores - want).abs().max().item())
+            plain = want.argmin(-1)
+            for r in torch.nonzero(got != plain)[:, 0].tolist():
+                sa, sb = want[r, got[r]].item(), want[r, plain[r]].item()
+                if abs(sa - sb) > ROUTE_RTOL * abs(sb):
+                    raise AssertionError(f"whole split {n}/{c}: row {r} "
+                                         f"top-1 {got[r]}, plain {plain[r]}")
+                ties += 1
+            if biggest is None or len(x) > len(biggest):
+                biggest = x
+    return {"splits": 2 * len(matcher.names), "max_abs_err": worst,
+            "tol": "rtol 2e-5 atol 1e-6", "near_ties": ties,
+            "kernel": {"b256": expert_score_case(torch, ops, folded,
+                                                 biggest[:256], record),
+                       "largest": expert_score_case(torch, ops, folded,
+                                                    biggest, record)}}
+
+
+def expert_score_case(torch, ops, folded, x, record):
+    """Kernel 1 on the trained bank at x's rows, timed as the kernels
+    phase times it (``record``)."""
+    B, D = x.shape
+    K, _, H = folded["w1"].shape
+    xk = x.expand(K, B, D)
+
+    def lib():
+        h = torch.baddbmm(folded["b1"][:, None, :], xk, folded["w1"])
+        xhat = torch.baddbmm(folded["b2"][:, None, :], h.relu_(),
+                             folded["w2"])
+        return (xhat - x).square_().sum(-1).div_(D).T
+
+    row = record(
+        "expert_score", "src/repro_torch/kernels/csrc/expert_score.cu",
+        "src/repro/kernels/expert_score.py:39",
+        ops.expert_score_folded(folded, x), ops.expert_score_plain(folded, x),
+        2e-5, 1e-6, lambda: ops.expert_score_folded(folded, x),
+        lambda: ops.expert_score_plain(folded, x), lib,
+        "torch.baddbmm x2 + square/sum",
+        4 * (B * D + K * (2 * D * H + H + D) + B * K),
+        2 * B * K * 2 * D * H, "float32", [B, K, D, H])
+    return {k: row[k] for k in ("ms", "ms_runs", "plain_ms", "library_ms",
+                                "bound_ms", "bound_by", "max_abs_err",
+                                "shape")}
+
+
+# ---------------------------------------------------------------------------
+# train_lm: the LM train step at published widths
+# ---------------------------------------------------------------------------
+
+#: the reference launcher's defaults (``launch/train.py``)
+LM_SEQ, LM_BATCH, LM_LR = 128, 8, 1e-3
+
+
+def train_lm_phase(np, torch, dev, ops):
+    """``Trainer`` steps of full-width ``llama3_2_1b`` (16 layers, bf16,
+    remat, 2 microbatches, clip 1.0) and of ``rwkv6_7b`` at published
+    widths with 4 of its 32 layers (params, grads, f32 accumulators and
+    moments of all 32 need ~124 GB), on ``synthetic_token_stream``;
+    then one ``make_train_step`` of each, reduced and f32, on the card
+    against the CPU. No hand-written kernel runs in a train step."""
+    from repro_torch.configs import get_config
+
+    ops.reset_launches()
+    out = {"phase": "train_lm", "seq": LM_SEQ, "batch": LM_BATCH,
+           "lr": LM_LR,
+           "llama3_2_1b": lm_run(np, torch, dev, get_config("llama3_2_1b"),
+                                 20),
+           "rwkv6_7b": lm_run(np, torch, dev,
+                              get_config("rwkv6_7b").replace(n_layers=4),
+                              10, reduced={"n_layers": [32, 4]})}
+    if any(ops.launches().values()):
+        raise AssertionError(f"train_lm: a kernel launched in a train "
+                             f"step: {ops.launches()}")
+    out["card_vs_cpu"] = {a: lm_step_check(np, torch, dev, a, S, tol)
+                          for a, S, tol in (("llama3_2_1b", 128, 2e-5),
+                                            ("rwkv6_7b", 32, 1e-4))}
+    return out
+
+
+def lm_run(np, torch, dev, cfg, steps, reduced=None):
+    """``steps`` Trainer steps from a seeded init; the loss read back each
+    step (one host sync), so a step's wall time is the gap between two
+    readings. Returns the step times, tokens/s, the model FLOP rate (6 x
+    params x tokens) against the bf16 peak, the peak memory and the
+    losses, which must be finite and end below where they began."""
+    from repro_torch.data import synthetic_token_stream
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer
+    from repro_torch.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(build_model(cfg), lr=LM_LR, total_steps=steps, seed=SEED,
+                 device=dev)
+    n_params = sum(p.numel() for p in leaves(tr.state["params"]))
+    stream = synthetic_token_stream(cfg.vocab_size, LM_SEQ, LM_BATCH,
+                                    seed=SEED)
+    stamps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = tr.fit(stream, steps, log_every=1,
+                  callback=lambda i, m: stamps.append(time.perf_counter()))
+    step_s = np.diff([t0] + stamps)
+    ms = float(np.median(step_s[-10:])) * 1e3
+    tokens = LM_BATCH * LM_SEQ
+    losses = [l for _, l in hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_lm {cfg.name}: losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_kernels(torch, lambda: tr.fit(stream, 1, log_every=1))
+    prof["busy_share_of_median_step"] = prof["kernel_ms"] / ms
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+            "remat": cfg.remat, "microbatches": cfg.train_microbatches,
+            "reduced": reduced, "params": n_params, "steps": steps,
+            "ms_per_step": ms, "ms_per_step_runs": [x * 1e3 for x in step_s],
+            "tokens_per_s": tokens / (ms / 1e3),
+            "model_flops_per_step": 6 * n_params * tokens,
+            "flop_share_of_bf16_peak": 6 * n_params * tokens / (ms / 1e3)
+            / PEAK_FLOPS["bfloat16"],
+            "peak_gb": peak / 1e9, "held_before_gb": held / 1e9,
+            "losses": losses, "profiled_step": prof}
+
+
+def profile_kernels(torch, call):
+    """The kernels one ``call`` launches (``torch.profiler``, the host
+    synchronised after it): how many, their device ms in all and the
+    eight largest by name; and the eight host operators with the most
+    self time (the host's share of a step the device waits on)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    by_name = {}
+    kern = [ev for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    for ev in kern:
+        by_name[ev.name] = by_name.get(ev.name, 0.0) \
+            + ev.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {"kernels": len(kern), "kernel_ms": sum(by_name.values()),
+            "top_kernels_ms": [[k[:70], v] for k, v in top],
+            "top_host_ops_self_ms": [[e.key[:50], e.self_cpu_time_total / 1e3,
+                                      e.count] for e in host[:8]]}
+
+
+def lm_step_check(np, torch, dev, arch, S, tol):
+    """One ``make_train_step`` (2 microbatches, clip 1.0, lr 1e-3) of the
+    reduced f32 ``arch`` from the same params and batch on the card and
+    on the CPU (``tests/test_torch_train_loop.py``'s tolerances): loss at
+    rtol ``tol``, each gradient leaf within ``tol * (|cpu| + max|cpu|)``,
+    the updated params as ``step_agrees`` holds them."""
+    from repro_torch.bridge import to_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_token_stream
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant_lr, global_norm
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import value_and_grad
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    s0 = init_train_state(model, torch.Generator().manual_seed(SEED),
+                          device="cpu")
+    if cfg.family == "rwkv":
+        trained_like(torch, s0["params"], torch.Generator().manual_seed(1))
+    batch = next(synthetic_token_stream(cfg.vocab_size, S, 8, seed=SEED))
+    step = make_train_step(model, lr_fn=constant_lr(1e-3), microbatches=2)
+    res = {}
+    for where in ("cpu", dev):
+        st = _tree(s0, lambda t: t.to(where))
+        b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        _, g = value_and_grad(model.loss, st["params"], b)
+        new, met = step(st, b)
+        res[str(where)] = (float(met["loss"]), float(global_norm(g)),
+                           _flat(to_numpy(g)), _flat(to_numpy(new["params"])))
+    (lc, gnc, gcpu, pc), (ld, _, gd, pd) = res["cpu"], res[str(dev)]
+    if not abs(ld - lc) <= tol * abs(lc):
+        raise AssertionError(f"train_lm {arch}: loss {ld}, CPU {lc}")
+    worst = 0.0
+    for path, w in gcpu.items():
+        err = np.abs(gd[path] - w)
+        if not (err <= tol * (np.abs(w) + np.abs(w).max())).all():
+            raise AssertionError(f"train_lm {arch}: grad {path} differs, "
+                                 f"max {err.max()}")
+        worst = max(worst, float(err.max()))
+    params = step_agrees(np, pd, pc, _flat(to_numpy(s0["params"])), gcpu,
+                         min(1.0, 1.0 / max(gnc, 1e-9)), 1e-3, skip=None,
+                         label=f"train_lm {arch}")
+    return {"config": cfg.name, "seq": S, "microbatches": 2,
+            "loss_card": ld, "loss_cpu": lc, "grad_max_abs_err": worst,
+            "grad_tol": f"{tol} x (|cpu| + max|cpu|) per leaf",
+            "params": params}
+
+
 def _record_decode(core, seen):
     """``core._decode_step`` that also keeps, per step, the wave's rows
     and copies of its post-step ``pos``/``t`` (device-to-device: nothing
@@ -1843,15 +2431,21 @@ def cpu_routes(np, torch, matcher, reqs):
     """(expert name, fine class) of each request through the CPU plain
     path: a Router over a CPU copy of the bank, coarse scoring and fine
     match through the kernels' plain versions."""
-    from repro_torch.core import ExpertMatcher
     from repro_torch.serve.router import Router
-    cpu = ExpertMatcher(_tree(matcher.bank_params, lambda t: t.cpu()),
-                        _tree(matcher.bank_states, lambda t: t.cpu()),
-                        matcher.names, matcher.centroids.cpu(),
-                        matcher.centroid_mask.cpu())
-    res = Router(cpu).route(np.stack([q.features for q in reqs]))
+    res = Router(cpu_matcher(matcher)).route(
+        np.stack([q.features for q in reqs]))
     return [(matcher.names[int(e)], int(f))
             for e, f in zip(res.coarse[:, 0], res.fine)]
+
+
+def cpu_matcher(matcher):
+    """The matcher over a CPU copy of its bank and centroids, default
+    config: coarse scores through the plain bank math."""
+    from repro_torch.core import ExpertMatcher
+    return ExpertMatcher(_tree(matcher.bank_params, lambda t: t.cpu()),
+                         _tree(matcher.bank_states, lambda t: t.cpu()),
+                         matcher.names, matcher.centroids.cpu(),
+                         matcher.centroid_mask.cpu())
 
 
 def check_routes(label, want, resps):

@@ -1,7 +1,8 @@
 """repro_torch — the PyTorch/CUDA port of the ExpertMatcher serving system.
 
 A package beside the JAX reference (``src/repro``) with the same layout
-(``configs``, ``core``, ``kernels``, ``models``, ``obs``, ``serve``) and
+(``configs``, ``core``, ``data``, ``kernels``, ``launch``, ``models``,
+``obs``, ``optim``, ``serve``, ``train``) and
 the same public layouts, so each module is tested against its reference
 counterpart on the same weights and inputs. It imports torch, numpy and
 the standard library only.

@@ -1,7 +1,13 @@
 """The paper's autoencoder: 784 -> 128 -> 784 single-layer MLP enc/dec
-with BatchNorm (eval mode here: training arrives with port slice A11).
-A *bank* of K such AEs (one per expert dataset) is stored with params
-stacked on a leading K axis, as in the reference.
+with BatchNorm, trained with MSE reconstruction loss (Sec. 4). A *bank*
+of K such AEs (one per expert dataset) is stored with params stacked on
+a leading K axis, as in the reference.
+
+``encode``, ``decode``, ``recon_mse`` and the bank functions are eval
+mode (BatchNorm from the running statistics) and take one AE or a bank;
+``forward(..., train=True)`` and ``loss_fn`` are the training side, on
+one AE: BatchNorm from the batch's statistics, returning the updated
+running statistics.
 """
 from __future__ import annotations
 
@@ -42,10 +48,29 @@ def init_ae(generator, in_dim: int = IN_DIM, hid_dim: int = HID_DIM,
     return params, bn_state
 
 
-def _bn(h, params, state):
-    """Eval-mode BatchNorm from the running statistics."""
-    hn = (h - state["mean"]) * torch.rsqrt(state["var"] + BN_EPS)
-    return hn * params["bn_scale"] + params["bn_bias"]
+def batch_norm(h, params, state, train: bool = False,
+               momentum: float = 0.9):
+    """BatchNorm over the rows of ``h`` with ``params`` {bn_scale,
+    bn_bias} and running statistics ``state`` {mean, var[, count]}.
+    Returns (out, new_state). Eval mode normalises by the running
+    statistics and returns ``state``; train mode by the batch's mean and
+    biased variance (``jnp.var``'s), and returns the running statistics
+    moved by ``1 - momentum`` towards them (``count`` + 1 where ``state``
+    keeps one), outside the autograd graph."""
+    if train:
+        mu = h.mean(dim=0)
+        var = h.var(dim=0, correction=0)
+        new_state = {
+            "mean": momentum * state["mean"] + (1 - momentum) * mu.detach(),
+            "var": momentum * state["var"] + (1 - momentum) * var.detach(),
+        }
+        if "count" in state:
+            new_state["count"] = state["count"] + 1
+    else:
+        mu, var = state["mean"], state["var"]
+        new_state = state
+    hn = (h - mu) * torch.rsqrt(var + BN_EPS)
+    return hn * params["bn_scale"] + params["bn_bias"], new_state
 
 
 def encode(params, state, x):
@@ -56,9 +81,9 @@ def encode(params, state, x):
             + params["b_enc"][:, None, :]
         st = {k: v[:, None, :] for k, v in state.items() if v.dim() == 2}
         pr = {k: params[k][:, None, :] for k in ("bn_scale", "bn_bias")}
-        return torch.relu(_bn(h, pr, st))
+        return torch.relu(batch_norm(h, pr, st)[0])
     h = x @ params["w_enc"] + params["b_enc"]
-    return torch.relu(_bn(h, params, state))
+    return torch.relu(batch_norm(h, params, state)[0])
 
 
 def decode(params, z):
@@ -72,6 +97,21 @@ def recon_mse(params, state, x):
     """Per-sample reconstruction MSE: (B,), or (K, B) for a bank."""
     xhat = decode(params, encode(params, state, x))
     return (xhat - x).square().mean(dim=-1)
+
+
+def forward(params, state, x, train: bool = False):
+    """One AE: x (B, in_dim) -> (xhat, bottleneck z, new_bn_state)."""
+    h = x @ params["w_enc"] + params["b_enc"]
+    h, new_state = batch_norm(h, params, state, train)
+    z = torch.relu(h)
+    return decode(params, z), z, new_state
+
+
+def loss_fn(params, state, x):
+    """Scalar training loss (mean MSE over the batch) in train mode:
+    (loss, new_bn_state)."""
+    xhat, _, new_state = forward(params, state, x, train=True)
+    return (xhat - x).square().mean(dim=-1).mean(), new_state
 
 
 # ---------------------------------------------------------------------------

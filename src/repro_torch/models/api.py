@@ -1,10 +1,11 @@
-"""Uniform model interface used by the serving path.
+"""Uniform model interface used by the serving and training paths.
 
 Every family implements:
   init(generator, device=None) -> params
   prefill(params, batch, capacity=None) -> (last_logits (B, V), cache)
   decode(params, cache, batch) -> (logits (B, V), cache)
   init_cache(batch_size, capacity, device) -> zeroed cache
+  loss(params, batch) -> (scalar loss, metrics)   (training)
 
 and, where ``supports_paged_kv``, the paged cache protocol
 (``init_paged_pool``, ``paged_prefill``, ``paged_prefill_suffix``,
@@ -37,6 +38,9 @@ class BaseModel:
         raise NotImplementedError
 
     def init_cache(self, batch_size: int, capacity: int, device=None):
+        raise NotImplementedError
+
+    def loss(self, params, batch):
         raise NotImplementedError
 
     # -- paged KV cache protocol (opt-in per family) ------------------------

@@ -207,3 +207,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None
+                 ) -> torch.Tensor:
+    """Mean cross-entropy; logits (..., V) any dtype (the padded vocab: the
+    logsumexp runs over every column, as the reference's does), reduction
+    in f32. ``mask`` (labels' shape) weights each position."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -18,6 +18,10 @@ dh)``. Paged prefills scatter whole pages into the pool in place; each
 paged decode layer writes its new K/V slot through the table column and
 then launches ``paged_decode_attention`` on that layer's strided view of
 the pool — the reference gathers a dense per-row copy instead.
+
+``loss`` (training) runs prefill's full-sequence layers over every
+position, each under ``torch.utils.checkpoint`` where ``cfg.remat`` is
+set, and the cross-entropy over the padded vocab.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels.decode_attention import decode_attention
@@ -34,7 +39,7 @@ from .attention import (attention, cache_prefill, init_kv_cache,
                         paged_append, paged_gather, paged_scatter_pages,
                         suffix_attend)
 from .common import (ArchConfig, apply_rope, dense_init, dt, embed_init,
-                     rmsnorm)
+                     rmsnorm, softmax_xent)
 
 
 def _init_layers(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict:
@@ -177,6 +182,32 @@ class DecoderLM(BaseModel):
         w = (params["embed"].T if self.cfg.tie_embeddings
              else params["unembed"])
         return x @ w.to(x.dtype)
+
+    # ------------------------------------------------------------------
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,
+        S) over the padded vocab, through prefill's full-sequence layers:
+        (total, {"ce", "aux"}). Where ``cfg.remat`` is set each layer runs
+        under ``torch.utils.checkpoint`` (the reference's
+        ``jax.checkpoint``): only its input is kept for the backward
+        pass, which recomputes the rest. ``aux``, the reference's MoE
+        balance loss (``total = ce + 0.01 * aux / n_layers``), is 0 for
+        dense layers, so ``total`` is ``ce``."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+
+        def layer(x, lp):
+            return _layer_full(x, lp, cfg, positions)[0]
+
+        for lp in _layer_views(params):
+            x = (checkpoint(layer, x, lp, use_reentrant=False) if cfg.remat
+                 else layer(x, lp))
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        ce = softmax_xent(self._unembed(params, x), batch["labels"])
+        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                                 device=x.device)}
 
     # ------------------------------------------------------------------
     def init_cache(self, batch_size, capacity, device=None):

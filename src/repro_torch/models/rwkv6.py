@@ -24,12 +24,13 @@ from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels.wkv_step import wkv_step, wkv_step_plain
 from .api import BaseModel, register_family
 from .common import (ArchConfig, dense_init, dt, embed_init, groupnorm_heads,
-                     rmsnorm)
+                     rmsnorm, softmax_xent)
 
 N_MIX = 5  # w, k, v, r, g ddlerp branches
 
@@ -196,19 +197,27 @@ def channel_mix(lp, x, x_prev):
     return out, x[:, -1]
 
 
-def _layer(lp, x, cfg: ArchConfig, state, mode):
-    """state: {S, x_tm, x_cm} views of one layer's cache; the new state is
-    written into them. Returns the new x."""
+def _layer_out(lp, x, cfg: ArchConfig, state, mode):
+    """One layer from state {S, x_tm, x_cm}: (new x, S, x_tm, x_cm). It
+    writes nothing, but in "step" mode the ``wkv_step`` kernel updates
+    ``state["S"]`` in place (and returns it as S)."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     o, x_tm, S = time_mix(lp, h, cfg, state["x_tm"], state["S"], mode)
     x = x + o
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     o2, x_cm = channel_mix(lp, h2, state["x_cm"])
+    return x + o2, S, x_tm, x_cm
+
+
+def _layer(lp, x, cfg: ArchConfig, state, mode):
+    """state: {S, x_tm, x_cm} views of one layer's cache; the new state is
+    written into them. Returns the new x."""
+    x, S, x_tm, x_cm = _layer_out(lp, x, cfg, state, mode)
     if S is not state["S"]:
         state["S"].copy_(S)
     state["x_tm"].copy_(x_tm)
     state["x_cm"].copy_(x_cm)
-    return x + o2
+    return x
 
 
 @register_family("rwkv")
@@ -285,3 +294,26 @@ class RWKV6(BaseModel):
         x = self._run(params, x, cache, "step")
         cache["t"].add_(1)
         return self._unembed(params, x[:, 0]), cache
+
+    # -- training -------------------------------------------------------
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,
+        S) over the padded vocab: (ce, {"ce"}). Every layer starts from
+        the zero state and evaluates the sequence with ``wkv_chunked``
+        (its scan fallback where S is not a multiple of ``ssm_chunk``),
+        as prefill does, writing nothing; under ``torch.utils.checkpoint``
+        where ``cfg.remat`` is set (the reference's ``jax.checkpoint``)."""
+        cfg = self.cfg
+        x = params["embed"][batch["tokens"].long()].to(dt(cfg.compute_dtype))
+        zero = {k: v[0] for k, v in self.init_cache(
+            x.shape[0], 1, device=x.device).items() if k != "t"}
+
+        def layer(x, lp):
+            return _layer_out(lp, x, cfg, zero, "chunked")[0]
+
+        for lp in _layer_views(params):
+            x = (checkpoint(layer, x, lp, use_reentrant=False) if cfg.remat
+                 else layer(x, lp))
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        ce = softmax_xent(self._unembed(params, x), batch["labels"])
+        return ce, {"ce": ce}

@@ -118,3 +118,52 @@ def test_rwkv6_init_tree_matches_reference():
         assert not lay[name].any(), name
     assert (lay["decay_w0"] == -6.0).all()
     assert (lay["ln1"] == 1).all() and (lay["g_norm"] == 1).all()
+
+
+def test_train_state_round_trip():
+    """A reference train state — bf16 params, their f32 AdamW moments and
+    the int32 step, after one step — crosses unchanged, and the port's
+    AdamW takes it as its own state."""
+    from repro.optim import constant_lr
+    from repro.train.loop import init_train_state, make_train_step
+    from repro_torch.optim import adamw_update
+    from repro_torch.tree import tree_map
+    cfg = get_config("llama3_2_1b").reduced(param_dtype="bfloat16",
+                                            compute_dtype="bfloat16")
+    model = build_model(cfg)
+    state = init_train_state(model, jax.random.PRNGKey(0))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9))
+    state, _ = make_train_step(model, lr_fn=constant_lr(1e-3))(
+        state, {"tokens": jnp.asarray(toks[:, :-1], jnp.int32),
+                "labels": jnp.asarray(toks[:, 1:], jnp.int32)})
+    tree = jax.device_get(state)
+    tt = to_torch(tree, device="cpu")
+    assert tt["params"]["layers"]["wq"].dtype == torch.bfloat16
+    assert tt["opt"]["m"]["layers"]["wq"].dtype == torch.float32
+    assert tt["opt"]["v"]["embed"].dtype == torch.float32
+    assert tt["opt"]["step"].dtype == torch.int32 and int(
+        tt["opt"]["step"]) == 1
+    assert tt["step"].dtype == torch.int32 and tt["step"].shape == ()
+    back = dict(_leaves(to_numpy(tt)))
+    for path, a in _leaves(tree):
+        np.testing.assert_array_equal(back[path], _bits(a), err_msg=path)
+    grads = tree_map(torch.zeros_like, tt["params"])
+    _, opt = adamw_update(grads, tt["opt"], tt["params"],
+                          torch.tensor(1e-3))
+    assert int(opt["step"]) == 2 and opt["step"].dtype == torch.int32
+
+
+def test_trained_ae_bn_state_round_trip():
+    """A trained AE's params and BatchNorm state (mean, var and the
+    f32 update count) cross bit for bit."""
+    from repro.core import train_ae
+    x = np.random.default_rng(1).random((96, 784), dtype=np.float32)
+    params, bn = jax.device_get(train_ae(x, epochs=2, batch_size=32))
+    assert float(bn["count"]) == 6
+    tp, tb = to_torch(params, device="cpu"), to_torch(bn, device="cpu")
+    assert tb["count"].dtype == torch.float32 and tb["count"].shape == ()
+    assert float(tb["count"]) == 6
+    for tree, t in ((params, tp), (bn, tb)):
+        back = dict(_leaves(to_numpy(t)))
+        for path, a in _leaves(tree):
+            np.testing.assert_array_equal(back[path], a, err_msg=path)

@@ -55,7 +55,12 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing():
     loaded = got["mods"]
     assert not [m for m in loaded if m.split(".")[0] in ("jax", "jaxlib")]
     assert not [m for m in loaded if m == "repro" or m.startswith("repro.")]
-    assert "repro_torch.serve.scheduler" in loaded
+    for m in ("repro_torch.serve.scheduler", "repro_torch.optim.adamw",
+              "repro_torch.optim.schedules", "repro_torch.train.loop",
+              "repro_torch.data.synthetic", "repro_torch.data.splits",
+              "repro_torch.data.preprocess", "repro_torch.launch.train",
+              "repro_torch.core.trainer", "repro_torch.core.mlp_baseline"):
+        assert m in loaded, m
     assert not got["lib"], "a kernel library was built at import time"
 
 
@@ -91,7 +96,33 @@ def test_entry_points_refuse_without_cuda(no_cuda):
         tserve.RoutedServer(matcher, reg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         to_torch({"w": np.zeros(3, np.float32)})
+    # the trainers, the LM Trainer and the training launcher
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import Trainer
+    x = np.random.default_rng(0).random((8, 784), dtype=np.float32)
+    y = np.arange(8) % 2
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcore.train_ae(x, epochs=1, batch_size=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcore.train_mlp(x, y, n_classes=2, epochs=1, batch_size=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model, total_steps=2)
+    launch = ["--arch", "smollm-135m", "--steps", "2", "--seq", "8",
+              "--batch", "2", "--log-every", "1"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(launch)
     # asked for explicitly, the CPU runs end to end
+    p, st = tcore.train_ae(x, epochs=1, batch_size=4, device="cpu")
+    assert float(st["count"]) == 2 and p["w_enc"].device.type == "cpu"
+    p, st = tcore.train_mlp(x, y, n_classes=2, epochs=1, batch_size=4,
+                            device="cpu")
+    assert p["w_out"].shape == (128, 2)
+    hist = Trainer(model, total_steps=2, device="cpu").fit(
+        iter([{"tokens": np.zeros((2, 8), np.int32),
+               "labels": np.ones((2, 8), np.int32)}] * 2), steps=2)
+    assert [i for i, _ in hist] == [0, 1]
+    hist = launch_train.main(launch + ["--device", "cpu"])
+    assert [i for i, _ in hist] == [0, 1]
     srv = tserve.RoutedServer(matcher, reg, device="cpu")
     out = srv.serve([tserve.Request(0, np.zeros(784, np.float32),
                                     np.arange(5, dtype=np.int32), 3)])
