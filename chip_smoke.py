@@ -15,7 +15,10 @@ Phases, each printing one JSON line:
    versions) from the same weights: greedy tokens must be equal and
    logits must agree. Then a paged ``RoutedServer`` of two such experts
    (``chunk_len`` 32) serves cohort traffic on the card and on the CPU:
-   greedy tokens must be equal.
+   greedy tokens must be equal. Then the same f32 expert speculates on
+   the card (``table`` draft, k 1 and 4, ring and paged, each verify a
+   replay of its captured verify graph): its tokens must equal the CPU's
+   plain-decode tokens.
 3. serve — the ring-KV main path: an AE-bank matcher (K = 6, 784 -> 128,
    coarse scoring through ``expert_score``, fine through one grouped
    ``cosine_fine`` launch per route chunk) in front of six full-width
@@ -32,7 +35,7 @@ Phases, each printing one JSON line:
    path must have launched, ``expert_score`` and ``cosine_scores``
    exactly once per route chunk with misses (counted by wrapping the
    router's per-chunk fine match, ``Router._fine_grouped``, here and in
-   phases 4 and 6), each request's expert
+   phases 4, 6 and 7), each request's expert
    and fine class must equal the CPU plain path's (a Router over a CPU
    copy of the bank), and the two executors' tokens must be equal.
 4. serve_paged — the paged-KV path: the same matcher in front of six
@@ -55,7 +58,23 @@ Phases, each printing one JSON line:
    engine's own tick of such a wave, host-synchronised, replaying its
    bucket's graph and eagerly, ring and paged, with the decode kernels'
    time per launch inside the replay.
-6. serve_rwkv — a mixed-family server, as the reference's launcher
+6. serve_spec — speculative decoding: six full-width ``llama3_2_1b``
+   spec engines (``speculate_k`` 4, the bigram ``table`` draft, ring,
+   ``max_len`` 256) on the serve phase's weights and matcher serve the
+   reference bench's decode-heavy mix (24 requests, prompts of 3-16
+   tokens, 32-64 new): graph serial, graph overlapped, eager serial,
+   eager overlapped. Every run's tokens must equal the first's, no wave
+   may fall back to plain decode, every verify graph must be captured
+   in the warm-up, routes must equal the CPU's and no decode kernel may
+   run in a verify. The serve phase's plain graph fleet serves the same
+   traffic: decoded tok/s of spec against plain, and each row must
+   equal the plain one or differ first where the two tokens are the
+   plain path's top 2 (its wave replayed exactly), at most two bf16 ulps
+   apart (printed). Then a paged spec run, an
+   ``always-wrong`` wave (acceptance 0, max(max_new) - 1 verifies) and
+   the engine's own verify tick (the breakdown's wave), replayed and
+   eager.
+7. serve_rwkv — a mixed-family server, as the reference's launcher
    builds one: an AE bank of K = 4 in front of two full-width bf16
    ``rwkv6_7b`` engines (random seeded weights, ring, ``max_len`` 256)
    and two ``llama3_2_1b`` engines sharing the serve phase's weight
@@ -66,10 +85,10 @@ Phases, each printing one JSON line:
    layer goes through ``wkv_step`` (32 launches per RWKV decode step) and
    every llama one through ``decode_attention``; every run's tokens must
    equal the first's, ``host_blocks`` 192 / 12.
-7. breakdown_rwkv — one RWKV decode step at that phase's largest RWKV
+8. breakdown_rwkv — one RWKV decode step at that phase's largest RWKV
    decode bucket, timed as in phase 5, with ``wkv_step``'s share, and the
    engine's own tick replayed and eager.
-8. kernels — each kernel against its plain PyTorch version on the same
+9. kernels — each kernel against its plain PyTorch version on the same
    inputs at the shapes its serve phase gave it (tolerance stated), and
    its device time beside the plain version's, a library yardstick's and
    its bound (L2 flushed before every timed launch, as the serving path
@@ -93,7 +112,7 @@ Phases, each printing one JSON line:
    ring row adds a long-ring case (B = 1, 4000 of 4096 slots live) beside
    SDPA.
 
-9. train_bank — the paper's protocol on the card: the six generators at
+10. train_bank — the paper's protocol on the card: the six generators at
    their Table 1 counts (``load_benchmark``), one ``fit_ae`` and one
    ``fit_mlp`` step from one init on the card and on the CPU (leaves at
    rtol 1e-5 where the gradient is at least 1e-5, within the step's
@@ -111,7 +130,7 @@ Phases, each printing one JSON line:
    ``expert_score`` launch at up to 11274 rows) against the plain
    version, and the kernel timed on the trained bank at B 256 and at the
    largest split; then ``train_mlp`` on the same splits and its accuracy.
-10. train_lm — 20 ``Trainer`` steps of full-width bf16 ``llama3_2_1b``
+11. train_lm — 20 ``Trainer`` steps of full-width bf16 ``llama3_2_1b``
    (remat, 2 microbatches, clip 1.0) and 10 of ``rwkv6_7b`` at published
    widths cut to 4 layers, on ``synthetic_token_stream`` at seq 128 x
    batch 8: ms a step (median of the last 10), tokens/s, 6 x params x
@@ -123,7 +142,7 @@ The reference phase (2) also runs a reduced f32 ``rwkv6_7b`` expert
 (``ssm_chunk`` 16) on the card and on the CPU, through both of its
 prefill branches: logits must agree and greedy tokens be equal.
 
-Phases 3, 4 and 6 report each run's seconds, decode steps, residency
+Phases 3, 4, 6 and 7 report each run's seconds, decode steps, residency
 swaps and captures, and the fleet's graphs (``graphs``: step objects,
 graphs captured, host ms of the captures, swaps).
 
@@ -193,6 +212,7 @@ def main() -> int:
     emit(paged)
     dense = breakdown_phase(np, torch, dev, shapes)
     emit(dense)
+    emit(serve_spec_phase(np, torch, dev, ops, shapes, dense["engine"]))
     rwkv, rshapes = serve_rwkv_phase(np, torch, dev, ops, shapes)
     emit(rwkv)
     recur = breakdown_rwkv_phase(np, torch, dev, rshapes)
@@ -282,7 +302,49 @@ def reference_phase(np, torch, dev):
             "tokens_equal": True, "rows": int(toks.shape[0]),
             "new_tokens": 12,
             "paged": paged_reference(np, torch, dev, model, cpu),
+            "spec": spec_reference(np, torch, dev, model, cpu, gpu),
             "rwkv": rwkv_reference(np, torch, dev)}
+
+
+def spec_reference(np, torch, dev, model, cpu, gpu):
+    """The reduced f32 dense expert speculating on the card (``table``
+    draft, k 1 and 4, ring and paged, each verify a replay of its
+    bucket's captured graph) against the CPU's plain decode on the same
+    weights: three rows of 5-16 token prompts and 17-24 new tokens, one
+    wave; the tokens must be equal, every wave must speculate."""
+    from repro_torch.serve import ExpertEngine
+    rng = np.random.default_rng(SEED + 7)
+    prompts = [rng.integers(0, 100, size=n).astype(np.int32)
+               for n in (5, 12, 16)]
+    caps = [24, 17, 20]
+
+    def drain(eng):
+        eng.admit([0, 1, 2], prompts, caps, defer=True)
+        while eng.n_active:
+            eng.tick(defer=True)
+            eng.harvest()
+        return dict(eng.poll())
+
+    want = drain(ExpertEngine(model, cpu, max_len=64, device="cpu"))
+    out = []
+    for layout in ("ring", "paged"):
+        for k in (1, 4):
+            eng = ExpertEngine(model, gpu, max_len=64, kv_layout=layout,
+                               speculate_k=k, draft="table", device=dev)
+            got = drain(eng)
+            st = eng.stats
+            if any(not np.array_equal(got[u], want[u]) for u in want):
+                raise AssertionError(f"reference: spec tokens ({layout}, k "
+                                     f"{k}) differ from the CPU's plain ones"
+                                     f"\n{got}\n{want}")
+            if st.spec_fallback_waves or not st.verify_captured:
+                raise AssertionError(f"reference: spec ({layout}, k {k}) "
+                                     f"{st.as_dict()}")
+            out.append({"kv": layout, "k": k,
+                        "verify_steps": st.verify_steps,
+                        "acceptance_rate": st.acceptance_rate})
+    return {"rows": 3, "max_new": caps, "draft": "table",
+            "tokens_equal_cpu_plain": True, "cases": out}
 
 
 def rwkv_reference(np, torch, dev):
@@ -946,8 +1008,11 @@ def engine_step(np, torch, dev, model, params, B, Sb, n, needle, **kw):
         out[f"{key}_wall_ms_per_step"] = statistics.median(walls)
         out[f"{key}_wall_ms_runs"] = [min(walls), max(walls)]
         if capture:
-            out["captured"] = eng.stats.decode_captured
-            out["capture_ms"] = eng.stats.decode_capture_ms
+            # a speculative engine's tick is a verify
+            out["captured"] = (eng.stats.decode_captured
+                               + eng.stats.verify_captured)
+            out["capture_ms"] = (eng.stats.decode_capture_ms
+                                 + eng.stats.verify_capture_ms)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(3):
@@ -963,6 +1028,16 @@ def engine_step(np, torch, dev, model, params, B, Sb, n, needle, **kw):
             out[f"{needle}_launches_per_step"] = len(mine) / 3
             out[f"{needle}_us_per_launch"] = (sum(mine) / len(mine)
                                               if mine else None)
+            # where a replayed tick's kernel time goes: [name, ms a step,
+            # launches a step] of the six largest
+            by_name = {}
+            for ev in kern:
+                t = by_name.setdefault(ev.name[:60], [0.0, 0])
+                t[0] += ev.time_range.elapsed_us() / 3e3
+                t[1] += 1
+            out["graph_top_kernels"] = [
+                [k, v[0], v[1] / 3] for k, v in
+                sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]]
         del eng
     out["graph_over_eager"] = (out["graph_wall_ms_per_step"]
                                / out["eager_wall_ms_per_step"])
@@ -1032,6 +1107,312 @@ def _leaves(node):
             yield from _leaves(v)
     else:
         yield node
+
+
+# ---------------------------------------------------------------------------
+# serve_spec: speculative decoding on the main path
+# ---------------------------------------------------------------------------
+
+#: the speculative engines' draft length and draft
+SPEC_K = 4
+SPEC_DRAFT = "table"
+#: the widest plain top-2 gap, in bf16 ulps of the top logit, at which a
+#: spec row may take the other token: the verify's GEMMs run at M = Bb (k
+#: + 1) and its attention is plain, where plain decode runs M = Bb and
+#: the decode kernel, so the paths' bf16 logits differ by rounding. The
+#: flips seen on an H100 80GB HBM3 at 700 W lie at 0, 1 and 2 ulps
+#: (PERF.md §6)
+TIE_ULPS = 2
+#: engine counters a spec run reports as deltas
+SPEC_DELTAS = DELTAS + ("verify_steps", "tokens_drafted", "tokens_accepted",
+                        "spec_fallback_waves", "verify_captured",
+                        "verify_capture_ms", "tokens_generated")
+
+
+def spec_traffic(np, rng, n):
+    """The reference bench's decode-heavy speculative traffic
+    (``benchmarks/serving_bench.py``, ``speculative_requests``): prompts
+    of 3-16 tokens over ids 0-99, 32-64 new tokens each, as (features,
+    prompt, max_new). At ``max_len`` 256 every wave passes the no-wrap
+    gate: Sb <= 16 and steps <= 63, so Sb + steps + k < 256."""
+    return [(rng.random(784, dtype=np.float32),
+             rng.integers(0, 100, size=int(rng.integers(3, 17))).astype(
+                 np.int32), int(rng.integers(32, 65))) for _ in range(n)]
+
+
+def _record_waves(core, out):
+    """Wrap ``core.admit_wave`` on the instance: ``out`` maps each
+    admitted uid to its wave (prompts, batch bucket, length bucket) and
+    its row in it."""
+    admit = core.admit_wave
+
+    def wrapped(groups, **kw):
+        (uids, prompts, _), = groups.values()
+        Bb, Sb = core.pad_shape(len(uids), max(len(p) for p in prompts))
+        for i, u in enumerate(uids):
+            out[u] = (core, list(prompts), Bb, Sb, i)
+        return admit(groups, **kw)
+    core.admit_wave = wrapped
+
+
+def near_tie(np, torch, dev, wave, want, d):
+    """The plain path's top-2 logits at position ``d`` of one row: its
+    wave (prompts padded to the wave's buckets, as the engine pads them)
+    prefilled and decoded eagerly at the served shapes, the row fed its
+    served plain tokens ``want`` (GEMM and attention rows do not read
+    other rows, which are fed 0). ``exact`` says the replay's argmax
+    gave the served tokens up to and including ``d``. Returns (gap, one
+    bf16 ulp of the top logit, top-2 ids, exact)."""
+    import math
+    core, prompts, Bb, Sb, row = wave
+    model, params = core.model, core.params[0]
+    toks = np.zeros((Bb, Sb), np.int32)
+    for i, p in enumerate(prompts):
+        p = np.asarray(p, np.int32)[-Sb:]
+        toks[i, :len(p)] = p
+    logits, cache = model.prefill(
+        params, {"tokens": torch.from_numpy(toks).to(dev)},
+        capacity=core.max_len)
+    got = [int(logits[row].argmax())]
+    for i in range(d):
+        tok = torch.zeros((Bb, 1), dtype=torch.int32, device=dev)
+        tok[row, 0] = int(want[i])
+        logits, cache = model.decode(params, cache, {"token": tok})
+        got.append(int(logits[row].argmax()))
+    top = logits[row].float().topk(2)
+    v = top.values.tolist()
+    ulp = 2.0 ** (math.floor(math.log2(abs(v[0]))) - 7)
+    return (v[0] - v[1], ulp, top.indices.tolist(),
+            got == [int(t) for t in want[:d + 1]])
+
+
+def serve_spec_phase(np, torch, dev, ops, shapes, plain_engine):
+    """Speculative decoding at full width: six spec ``llama3_2_1b``
+    engines (``speculate_k`` 4, the bigram ``table`` draft, ring,
+    ``max_len`` 256) sharing the serve phase's weight tensors, behind its
+    matcher, serving the reference bench's decode-heavy traffic (24
+    requests, prompts of 3-16 tokens, 32-64 new): graph serial, graph
+    overlapped, eager serial, eager overlapped, each fleet warmed by the
+    same requests with every prompt token shifted by one (the same
+    buckets captured; the table draft learns on the warm-up, as it keeps
+    learning for an engine's lifetime). Every run's tokens must equal the
+    first's; no wave may fall back; routes equal the CPU's;
+    ``expert_score`` / ``cosine_scores`` once per route chunk and no
+    decode kernel in a verify. Then the serve phase's plain graph fleet
+    on the same traffic (warmed the same way), serial and overlapped:
+    decoded tok/s of spec against plain, and the tokens row by row — a
+    row may differ only where, at the first differing position, the two
+    tokens are the plain path's top 2 at most ``TIE_ULPS`` bf16 ulps apart
+    (the verify's GEMMs run
+    at M = Bb (k+1), plain decode's at M = Bb). Then one paged spec run
+    (page 8, graph, overlapped), one ``always-wrong`` wave (acceptance 0,
+    max(max_new) - 1 verifies), and the engine's own verify tick of one
+    resident wave at the breakdown phase's bucket, replayed and eager."""
+    from repro_torch.core import ExpertRegistry
+    from repro_torch.serve import ExpertEngine, Request, RoutedServer
+
+    cfg, matcher, ring = shapes["cfg"], shapes["matcher"], shapes["registry"]
+    model = shapes["engine"].model
+    rng = np.random.default_rng(SEED + 9)
+    traffic = spec_traffic(np, rng, 24)
+    warm = [(f, (p + 1) % 100, m) for f, p, m in traffic]
+    decoded = sum(m - 1 for _, _, m in traffic)
+
+    def requests(uid0, tr=traffic):
+        return [Request(uid=uid0 + u, features=f, prompt=p, max_new_tokens=m)
+                for u, (f, p, m) in enumerate(tr)]
+
+    def fleet(capture=True, **kw):
+        """Six spec engines on the serve phase's weights, warmed."""
+        reg = ExpertRegistry()
+        for e in range(len(ring)):
+            reg.add(ring[e].name, ExpertEngine(
+                model, ring[e].backend.params, max_len=256, device=dev,
+                capture_decode=capture, speculate_k=SPEC_K, draft=SPEC_DRAFT,
+                **kw))
+        RoutedServer(matcher, reg, executor="serial", device=dev,
+                     speculate_k=SPEC_K).serve(requests(20_000, warm))
+        torch.cuda.synchronize()
+        return reg
+
+    want_routes = cpu_routes(np, torch, matcher, requests(0))
+
+    def run(reg, executor, label, paged=False, spec=True):
+        engines = [reg[e].backend for e in range(len(reg))]
+        server = RoutedServer(matcher, reg, executor=executor, device=dev,
+                              speculate_k=SPEC_K if spec else 0)
+        before = [e.stats.as_dict() for e in engines]
+        fine_calls = _record_route(server.router, [])
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        resps = server.serve(requests(0))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = ops.launches()
+        _unrecord_route(server.router)
+        chunks = route_chunks(label, fine_calls, launches)
+        check_routes(label, want_routes, resps)
+        for r, (_, _, m) in zip(resps, traffic):
+            if r.tokens.shape != (m,) or not (
+                    (r.tokens >= 0) & (r.tokens < cfg.padded_vocab)).all():
+                raise AssertionError(f"{label}: bad response {r}")
+        d = engine_delta(engines, before, SPEC_DELTAS)
+        plain_steps = d["decode_steps"] - d["verify_steps"]
+        attn, other = ("paged_decode_attention", "decode_attention") \
+            if paged else ("decode_attention", "paged_decode_attention")
+        if launches[attn] != cfg.n_layers * plain_steps or launches[other] \
+                or launches["wkv_step"]:
+            raise AssertionError(
+                f"{label}: {launches} for {plain_steps} plain decode steps "
+                f"of {cfg.n_layers} layers")
+        if spec and (d["spec_fallback_waves"] or not d["verify_steps"]):
+            raise AssertionError(f"{label}: {d['spec_fallback_waves']} "
+                                 f"fallback waves, {d['verify_steps']} "
+                                 "verifies on the bench geometry")
+        out = {"seconds": dt, "req_per_s": len(resps) / dt,
+               "decoded_tokens": decoded, "decoded_tok_per_s": decoded / dt,
+               "generated_tok_per_s": sum(len(r.tokens) for r in resps) / dt,
+               **d, "launches": launches, "route_chunks": chunks}
+        if spec:
+            out["acceptance_rate"] = (d["tokens_accepted"]
+                                      / max(d["tokens_drafted"], 1))
+            out["tokens_per_verify"] = decoded / d["verify_steps"]
+            out["tokens_per_row_verify"] = decoded / (d["tokens_drafted"]
+                                                      / SPEC_K)
+        return resps, out
+
+    runs, tokens, graphs = {True: {}, False: {}}, {}, {}
+    for capture, executor in RUNS:
+        label = f"{'graph' if capture else 'eager'} {executor}"
+        if executor == "serial":
+            reg = fleet(capture)
+        resps, r = run(reg, executor, label)
+        if capture and r["verify_captured"]:
+            raise AssertionError(f"{label}: a verify graph was captured in "
+                                 "a timed run, not in the warm-up")
+        runs[capture][executor] = r
+        tokens[label] = [x.tokens for x in resps]
+        if capture and executor == "overlapped":
+            spec_resps = resps
+            st = [reg[e].backend.stats for e in range(len(reg))]
+            graphs = {"verify_compiles": sum(s.verify_compiles for s in st),
+                      "verify_captured": sum(s.verify_captured for s in st),
+                      "verify_capture_ms": sum(s.verify_capture_ms
+                                               for s in st),
+                      "decode_compiles": sum(s.decode_compiles for s in st),
+                      "swaps": sum(s.decode_swaps for s in st),
+                      "bound": sum(reg[e].backend.core.executable_bounds()[
+                          "verify"] for e in range(len(reg)))}
+            if graphs["verify_captured"] != graphs["verify_compiles"] or \
+                    graphs["verify_compiles"] > graphs["bound"]:
+                raise AssertionError(f"verify graphs: {graphs}")
+    same_tokens("serve_spec", tokens, lambda a, b: np.array_equal(a, b))
+    del reg
+
+    # the plain graph fleet of the serve phase on the same traffic
+    RoutedServer(matcher, ring, executor="serial", device=dev).serve(
+        requests(30_000, warm))
+    waves = {}
+    cores = [ring[e].backend.core for e in range(len(ring))]
+    for c in cores:
+        _record_waves(c, waves)
+    plain = {}
+    for executor in ("serial", "overlapped"):
+        plain_resps, plain[executor] = run(ring, executor,
+                                           f"plain {executor}", spec=False)
+    for c in cores:
+        del c.admit_wave
+    ties, same = [], 0
+    for r, p in zip(spec_resps, plain_resps):
+        if np.array_equal(r.tokens, p.tokens):
+            same += 1
+            continue
+        d = int(np.flatnonzero(r.tokens != p.tokens)[0])
+        gap, ulp, top2, exact = near_tie(np, torch, dev, waves[r.uid],
+                                         p.tokens, d)
+        ties.append({"uid": r.uid, "position": d, "plain": int(p.tokens[d]),
+                     "spec": int(r.tokens[d]), "plain_top2": top2,
+                     "top2_gap": gap, "bf16_ulp": ulp,
+                     "replay_exact": exact})
+    # a near tie: the two tokens are the plain path's top 2 (replayed
+    # exactly), at most TIE_ULPS bf16 ulps apart
+    bad = [t for t in ties if not t["replay_exact"]
+           or {t["plain"], t["spec"]} != set(t["plain_top2"])
+           or t["top2_gap"] > TIE_ULPS * t["bf16_ulp"]]
+
+    # one paged spec run (page 8, no chunking: the gate lets every wave in)
+    preg = fleet(True, kv_layout="paged", page_size=8)
+    presps, paged = run(preg, "overlapped", "paged", paged=True)
+    for e in range(len(preg)):
+        core = preg[e].backend.core
+        core.pool.check()
+        cached = sum(1 for k in core.prefix_cache._lru if k[0] == "pg")
+        if core.pool.used_count(0) != cached:
+            raise AssertionError(f"paged spec: {core.pool.used_count(0)} "
+                                 f"pages in use, {cached} cached")
+    paged["equal_share_ring_spec"] = sum(
+        bool(np.array_equal(a.tokens, b.tokens))
+        for a, b in zip(presps, spec_resps)) / len(presps)
+    del preg
+
+    # one always-wrong wave beside the same wave through the table draft
+    prompts = [p for _, p, _ in traffic[:4]]
+    caps = [m for _, _, m in traffic[:4]]
+    wave = {}
+    for draft in ("always-wrong", SPEC_DRAFT):
+        eng = ExpertEngine(model, ring[0].backend.params, max_len=256,
+                           device=dev, speculate_k=SPEC_K, draft=draft)
+        eng.admit(list(range(4)), prompts, caps, defer=True)
+        while eng.n_active:
+            eng.tick(defer=True)
+            eng.harvest()
+        wave[draft] = (dict(eng.poll()), eng.stats)
+    got, st = wave["always-wrong"]
+    if st.tokens_accepted or not st.tokens_drafted \
+            or st.verify_steps != max(caps) - 1:
+        raise AssertionError(f"always-wrong: {st.as_dict()}")
+    always = {"rows": 4, "max_new": caps, "verify_steps": st.verify_steps,
+              "tokens_drafted": st.tokens_drafted,
+              "acceptance_rate": st.acceptance_rate,
+              "tokens_equal_table_draft": all(
+                  np.array_equal(got[u], wave[SPEC_DRAFT][0][u])
+                  for u in range(4)),
+              "table_draft_verify_steps": wave[SPEC_DRAFT][1].verify_steps}
+
+    # the engine's own verify tick (breakdown's wave: B rows, 64-token
+    # prompts), replayed and eager
+    B = plain_engine["rows"]
+    tick = engine_step(np, torch, dev, model, ring[0].backend.params, B, 64,
+                       20, "gemm", speculate_k=SPEC_K, draft=SPEC_DRAFT)
+    tick["plain_graph_wall_ms_per_step"] = plain_engine[
+        "graph_wall_ms_per_step"]
+    tick["verify_over_plain_replayed"] = (tick["graph_wall_ms_per_step"]
+                                          / plain_engine[
+                                              "graph_wall_ms_per_step"])
+    g = runs[True]["overlapped"]
+    out = {"phase": "serve_spec", "config": cfg.name,
+            "experts": len(ring), "requests": len(traffic),
+            "speculate_k": SPEC_K, "draft": SPEC_DRAFT, "kv": "ring",
+            "max_len": 256, "prompt_len": [3, 16], "max_new_tokens": [32, 64],
+            "decoded_tokens": decoded, "tokens_equal": True,
+            "tokens_equal_graph_eager": True, "routes_equal_cpu": True,
+            "serial": runs[True]["serial"], "overlapped": g,
+            "eager": runs[False], "graphs": graphs,
+            "plain": plain,
+            "spec_over_plain_decoded_tok_per_s": {
+                ex: runs[True][ex]["decoded_tok_per_s"]
+                / plain[ex]["decoded_tok_per_s"] for ex in plain},
+            "rows_equal_plain": same, "rows_near_tie": ties,
+            "near_tie_gaps_ulps": sorted(t["top2_gap"] / t["bf16_ulp"]
+                                         for t in ties),
+            "paged": paged, "always_wrong": always, "engine": tick}
+    if bad:
+        print(json.dumps(out), file=sys.stderr, flush=True)
+        raise AssertionError(f"serve_spec: rows differ from the plain "
+                             f"server other than at a near tie of its top-2 "
+                             f"logits (<= {TIE_ULPS} bf16 ulps): {bad}")
+    return out
 
 
 # ---------------------------------------------------------------------------

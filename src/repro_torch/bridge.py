@@ -6,7 +6,10 @@ params (``embed``, ``layers/*`` stacked on a leading ``L`` axis,
 ``ln_f``), the AE bank's ``(bank_params, bank_states)`` stacked on a
 leading ``K`` axis, and the matcher's ``centroids`` / ``centroid_mask``.
 ``to_torch`` maps any such tree onto tensors on a device; ``to_numpy``
-maps back.
+maps back; ``copy_to_torch`` copies such a tree into tensors that already
+exist, in place — a speculative draft's engine state
+(``EngineCore.draft_state``, which a captured verify graph reads at fixed
+addresses) takes the reference engine's state this way.
 
 bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` rejects; they cross as a bit-identical ``uint16``
@@ -61,3 +64,29 @@ def to_numpy(tree: Any) -> Any:
         return t.numpy()
 
     return rec(tree)
+
+
+def copy_to_torch(dst: Any, src: Any) -> None:
+    """Copy the numpy tree ``src`` into the tensor tree ``dst`` of the
+    same structure, leaf by leaf and in place (each leaf keeps its
+    storage, device and dtype). Raises if a key, a length or a shape
+    differs. A reference draft's state comes across this way:
+    ``copy_to_torch(core.draft_state, jax.device_get(jax_core.draft_state))``
+    (``jax.random`` draws cannot be reproduced by a torch generator)."""
+    if isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise ValueError(f"keys differ: {sorted(dst)} vs {sorted(src)}")
+        for k in dst:
+            copy_to_torch(dst[k], src[k])
+        return
+    if isinstance(dst, (list, tuple)):
+        if len(dst) != len(src):
+            raise ValueError(f"lengths differ: {len(dst)} vs {len(src)}")
+        for d, s in zip(dst, src):
+            copy_to_torch(d, s)
+        return
+    t = _leaf_to_torch(src, torch.device("cpu"))
+    if tuple(t.shape) != tuple(dst.shape):
+        raise ValueError(f"shapes differ: {tuple(dst.shape)} vs "
+                         f"{tuple(t.shape)}")
+    dst.copy_(t)

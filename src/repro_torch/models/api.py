@@ -9,7 +9,8 @@ Every family implements:
 
 and, where ``supports_paged_kv``, the paged cache protocol
 (``init_paged_pool``, ``paged_prefill``, ``paged_prefill_suffix``,
-``paged_decode``).
+``paged_decode``); where ``supports_verify``, the speculative verify
+protocol (``verify``, and ``paged_verify`` with the paged layout).
 """
 from __future__ import annotations
 
@@ -67,15 +68,23 @@ class BaseModel:
         raise NotImplementedError(
             f"{type(self).__name__} does not support the paged KV layout")
 
-    # -- protocols of later slices -------------------------------------------
+    # -- speculative verify protocol (opt-in per family) ---------------------
     @property
     def supports_verify(self) -> bool:
-        """Speculative verify arrives with port slice A8."""
+        """Whether this family scores a (B, k+1) draft window in one pass
+        (``verify`` / ``paged_verify``). Recurrent families do not: their
+        state cannot roll back a rejected suffix."""
         return False
 
     def verify(self, *args, **kwargs):
         raise NotImplementedError(
-            "speculative verify arrives with port slice A8")
+            f"{type(self).__name__} does not implement the speculative "
+            "verify protocol")
+
+    def paged_verify(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement the speculative "
+            "verify protocol")
 
     # -- shapes ------------------------------------------------------------
     def cache_capacity(self, seq_len: int) -> int:

@@ -251,3 +251,20 @@ def paged_append(k_pages, v_pages, tbl_col, offset, k1, v1):
     k_pages.index_put_(idx, k1[:, 0].to(k_pages.dtype))
     v_pages.index_put_(idx, v1[:, 0].to(v_pages.dtype))
     return k_pages, v_pages
+
+
+def paged_append_rows(k_pages, v_pages, tbl_cols, offsets, kw, vw):
+    """Write W tokens a row in place at *per-row* slots: the speculative
+    verify's scatter, where each row's write window starts at its own
+    ``t``. tbl_cols, offsets: (B, W) physical page / in-page slot of each
+    written token; kw, vw: (B, W, KV, dh); (b, w) lands in
+    ``pages[tbl_cols[b, w], offsets[b, w]]``. A row's window is owned by
+    that row alone (the engine allocates it per row), so two writes meet
+    only on the trash page, from padding rows. Which of them lands there
+    is undefined (``index_put_`` without accumulation, nondeterministic
+    on CUDA) and harmless: a real row reads the trash page only at
+    masked slots, and padding rows' outputs are dropped."""
+    idx = (tbl_cols.long(), offsets.long())
+    k_pages.index_put_(idx, kw.to(k_pages.dtype))
+    v_pages.index_put_(idx, vw.to(v_pages.dtype))
+    return k_pages, v_pages

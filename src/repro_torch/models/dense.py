@@ -19,6 +19,14 @@ paged decode layer writes its new K/V slot through the table column and
 then launches ``paged_decode_attention`` on that layer's strided view of
 the pool — the reference gathers a dense per-row copy instead.
 
+``verify`` (speculative decoding) scores a (B, k+1) draft window per
+row in one pass: every layer writes all k+1 K/V slots into the ring at
+each row's own positions, then attends through the plain ``attention``
+with per-row ``q_pos`` (B, k+1) and ``kv_pos`` (B, C), as the reference
+does — neither decode kernel takes per-row positions or more than one
+query a row. ``paged_verify`` gathers each row's dense view, runs
+``verify`` on it and scatters the written slots back into the pool.
+
 ``loss`` (training) runs prefill's full-sequence layers over every
 position, each under ``torch.utils.checkpoint`` where ``cfg.remat`` is
 set, and the cross-entropy over the padded vocab.
@@ -36,8 +44,8 @@ from ..kernels.decode_attention import decode_attention
 from ..kernels.paged_decode_attention import paged_decode_attention
 from .api import BaseModel, register_family
 from .attention import (attention, cache_prefill, init_kv_cache,
-                        paged_append, paged_gather, paged_scatter_pages,
-                        suffix_attend)
+                        paged_append, paged_append_rows, paged_gather,
+                        paged_scatter_pages, suffix_attend)
 from .common import (ArchConfig, apply_rope, dense_init, dt, embed_init,
                      rmsnorm, softmax_xent)
 
@@ -137,6 +145,24 @@ def _layer_decode(x, lp, t, cfg: ArchConfig, write_attend):
     o = write_attend(q[:, 0], k1, v1)
     B = x.shape[0]
     x = x + (o.reshape(B, 1, -1) @ lp["wo"]).to(x.dtype)
+    h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    return x + _ffn(h2, lp).to(x.dtype)
+
+
+def _layer_verify(x, lp, cfg: ArchConfig, q_pos, write):
+    """Speculative-verify layer over a (B, K1) window; ``q_pos`` (B, K1)
+    per-row absolute positions. ``write(k1, v1)`` lands the whole
+    window's K/V in the layer's cache in place and returns (k cache, v
+    cache, kv_pos (B, C)); attention then masks each query to
+    ``kv_pos <= q_pos``, exactly the keys a chained one-token decode
+    would have seen."""
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q, k1, v1 = _qkv(h, lp, cfg, q_pos)
+    ck, cv, kv_pos = write(k1, v1)
+    o = attention(q, ck, cv, q_pos=q_pos, kv_pos=kv_pos,
+                  window=cfg.sliding_window, chunk=0)
+    B, S = x.shape[:2]
+    x = x + (o.reshape(B, S, -1) @ lp["wo"]).to(x.dtype)
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     return x + _ffn(h2, lp).to(x.dtype)
 
@@ -272,6 +298,85 @@ class DecoderLM(BaseModel):
         cache["pos"].copy_(kv_pos)
         t.add_(1)
         return logits, cache
+
+    # ------------------------------------------------------------------
+    # Speculative verify. Exactness: all K+1 keys/values land in the
+    # cache at their absolute positions before attention, and the per-row
+    # mask (0 <= kv_pos <= q_pos_i) gives query i exactly the key set a
+    # chained one-token decode would have seen; a masked slot's softmax
+    # weight is exactly 0 in f32, and its (finite) stale K/V adds 0.
+    # ------------------------------------------------------------------
+    @property
+    def supports_verify(self) -> bool:
+        return True
+
+    def verify(self, params, cache, pos, t, batch):
+        """Score a K+1 token window per row against the model.
+
+        cache: {"k", "v"} (L, B, C, KV, dh) ring buffers, written in
+        place; pos: (B, C) int32 per-row slot positions (-1 empty); t:
+        (B,) int32 per-row next write position; batch: {"tokens": (B,
+        K+1)}, the last emitted token and K draft proposals. Returns
+        (greedy (B, K+1) int32, cache): greedy[:, i] is the argmax after
+        window token i. Slots t .. t+K of every row are written
+        optimistically (the caller guarantees they hold pos == -1 and
+        rolls ``pos`` back over the rejected suffix); ``pos`` and ``t``
+        are only read. Token ids past the embedding's last row (a draft
+        may propose the id ``padded_vocab``) are clamped to it, as the
+        reference's gather clamps them."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, K1 = tokens.shape
+        C = cache["k"].shape[2]
+        dev = tokens.device
+        rows = torch.arange(B, device=dev)[:, None]                # (B, 1)
+        offs = t[:, None] + torch.arange(K1, dtype=t.dtype,
+                                         device=dev)[None, :]     # (B, K1)
+        slots = (offs % C).long()
+        kv_pos = pos.scatter(1, slots, offs)
+        last = params["embed"].shape[0] - 1
+        x = self._embed(params, {"tokens": tokens.clamp(0, last)})
+        for i, lp in enumerate(_layer_views(params)):
+            ck, cv = cache["k"][i], cache["v"][i]
+
+            def write(k1, v1, ck=ck, cv=cv):
+                # (row, slot) pairs are distinct: K1 <= C
+                ck.index_put_((rows, slots), k1.to(ck.dtype))
+                cv.index_put_((rows, slots), v1.to(cv.dtype))
+                return ck, cv, kv_pos
+
+            x = _layer_verify(x, lp, cfg, offs, write)
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        logits = self._unembed(params, x)                          # (B, K1, V)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    def paged_verify(self, params, pool, table, pos, t, batch, *, page):
+        """Paged verify, as the reference's: gather each row's dense view
+        of every layer through its page table, run ``verify`` on it, and
+        scatter the K+1 written slots back into the pool in place
+        (``paged_append_rows``). table: (B, n_lp) int32; pos (B, C); t
+        (B,). Returns (greedy (B, K+1) int32, pool)."""
+        tokens = batch["tokens"]
+        B, K1 = tokens.shape
+        C = table.shape[1] * page
+        L = self.cfg.n_layers
+        views = [paged_gather(pool["k"][:, i], pool["v"][:, i], table)
+                 for i in range(L)]
+        gk = torch.stack([k for k, _ in views])
+        gv = torch.stack([v for _, v in views])
+        del views
+        greedy, _ = self.verify(params, {"k": gk, "v": gv}, pos, t, batch)
+        dev = tokens.device
+        slots = (t[:, None] + torch.arange(K1, dtype=t.dtype,
+                                           device=dev)[None, :]) % C
+        slots = slots.long()
+        tbl_cols = table.gather(1, slots // page)
+        offs = slots % page
+        rows = torch.arange(B, device=dev)[:, None]
+        for i in range(L):
+            paged_append_rows(pool["k"][:, i], pool["v"][:, i], tbl_cols,
+                              offs, gk[i][rows, slots], gv[i][rows, slots])
+        return greedy, pool
 
     # ------------------------------------------------------------------
     # Paged KV cache protocol. Pools are {k, v: (P1, L, page, KV, dh)}:

@@ -10,12 +10,17 @@ paged KV layout, one engine per expert).
     the page pool with prefix sharing, copy-on-write and chunked prefill.
   * ``PagePool`` / ``PrefixCache`` — the paged layout's host-side
     allocator and shared-prefix index (``kvcache``).
+  * ``DraftModel`` and its three drafts (``mlp``, ``table``,
+    ``always-wrong``) — the proposers of speculative decoding
+    (``ExpertEngine(speculate_k=k, draft=...)``).
   * ``DispatchExecutor`` (``serial`` / ``overlapped``) — whether a step
     blocks per decode tick or enqueues all shards' work first.
 """
 from .core import (DispatchExecutor, EngineCore, EngineStats,
                    OverlappedExecutor, SerialExecutor, bucket_for,
                    get_executor, make_buckets)
+from .draft import (AlwaysWrongDraft, BigramTableDraft, DraftModel,
+                    MLPBaselineDraft, build_draft)
 from .engine import ExpertEngine
 from .kvcache import PagePool, PagePoolExhausted, PrefixCache, hash_chain
 from .router import PrefixLRU, Router, RouteResult
@@ -23,7 +28,8 @@ from .scheduler import (Request, Response, RoutedServer, Scheduler,
                         SchedulerConfig, SchedulerStats, Shard)
 
 __all__ = [
-    "DispatchExecutor", "EngineCore", "EngineStats", "ExpertEngine",
+    "AlwaysWrongDraft", "BigramTableDraft", "DraftModel", "MLPBaselineDraft",
+    "build_draft", "DispatchExecutor", "EngineCore", "EngineStats", "ExpertEngine",
     "OverlappedExecutor", "PagePool", "PagePoolExhausted", "PrefixCache",
     "PrefixLRU", "Request", "Response",
     "RouteResult", "RoutedServer", "Router", "Scheduler",

@@ -27,6 +27,13 @@ expert engine, plus the dispatch executors.
     wave at that bucket, as the reference compiles one executable per
     decode bucket; eager on the CPU or with ``capture_decode=False``.
     Prefill stays eager.
+  * speculative decoding (``speculate_k`` > 0, dense families): a draft
+    (``serve/draft.py``) proposes k tokens a row, the target scores the
+    (Bb, k+1) window in one pass (``model.verify``), the matched greedy
+    prefix is accepted and the rejected suffix rolled back. Spec waves
+    carry per-row positions; each verify is one ``VerifyGraph`` step per
+    (engine, batch bucket, k). A wave that could wrap its ring (or, paged,
+    a chunked one) falls back to plain decode.
   * every such host-blocking copy increments ``EngineStats.host_blocks``.
 
 The dispatch executors decide *when* the host blocks:
@@ -49,7 +56,9 @@ import torch
 
 from ..device import resolve_device
 from ..obs.trace import NULL_TRACER
-from .graphs import DecodeGraph, tree_map
+from ..tree import tree_map
+from .draft import DraftModel, build_draft
+from .graphs import DecodeGraph, VerifyGraph
 from .kvcache import PagePool, PagePoolExhausted, PrefixCache, hash_chain
 
 
@@ -100,7 +109,13 @@ class EngineStats:
     chunk index)`` for suffix prefill — the quantity the reference's
     executable counts bound. ``decode_swaps`` counts ring waves' states
     copied into a bucket's static buffers (the resident wave's copied
-    out first, where it still runs).
+    out first, where it still runs), decode and verify steps alike.
+    ``verify_compiles`` / ``verify_captured`` / ``verify_capture_ms`` are
+    the same for the ``VerifyGraph`` objects of a speculative engine, one
+    per (batch bucket, k). Speculation: ``verify_steps`` counts verifies
+    (each also a decode step), ``tokens_drafted`` k per verified active
+    row, ``tokens_accepted`` the matched drafts, ``spec_fallback_waves``
+    waves that wanted to speculate but failed the no-wrap / chunk gate.
     ``host_blocks`` counts host-blocking device-to-host copies. Prefill
     accounting: ``prefill_tokens_submitted`` counts every prompt token
     clients sent, ``prefill_tokens_computed`` the tokens that went
@@ -124,6 +139,10 @@ class EngineStats:
         self.prefix_pages_shared = 0    # page refs shared instead of built
         self.pages_copied = 0           # copy-on-write page copies
         self.decode_swaps = 0           # ring residency swaps
+        self.verify_steps = 0
+        self.tokens_drafted = 0
+        self.tokens_accepted = 0
+        self.spec_fallback_waves = 0
 
     @property
     def prefill_compiles(self) -> int:
@@ -148,9 +167,29 @@ class EngineStats:
                    for g in self._core._graphs.values()) if self._core else 0.0
 
     @property
+    def verify_compiles(self) -> int:
+        return len(self._core._verify_graphs) if self._core else 0
+
+    @property
+    def verify_captured(self) -> int:
+        return sum(g.graph is not None for g in
+                   self._core._verify_graphs.values()) if self._core else 0
+
+    @property
+    def verify_capture_ms(self) -> float:
+        return sum(g.capture_ms for g in
+                   self._core._verify_graphs.values()) if self._core else 0.0
+
+    @property
+    def acceptance_rate(self) -> float:
+        if not self.tokens_drafted:
+            return 0.0
+        return self.tokens_accepted / self.tokens_drafted
+
+    @property
     def jit_cache_entries(self) -> int:
         return (self.prefill_compiles + self.suffix_compiles
-                + self.decode_compiles)
+                + self.decode_compiles + self.verify_compiles)
 
     def as_dict(self) -> Dict[str, Any]:
         return {
@@ -168,11 +207,19 @@ class EngineStats:
             "prefix_pages_shared": self.prefix_pages_shared,
             "pages_copied": self.pages_copied,
             "decode_swaps": self.decode_swaps,
+            "verify_steps": self.verify_steps,
+            "tokens_drafted": self.tokens_drafted,
+            "tokens_accepted": self.tokens_accepted,
+            "acceptance_rate": self.acceptance_rate,
+            "spec_fallback_waves": self.spec_fallback_waves,
             "prefill_compiles": self.prefill_compiles,
             "suffix_compiles": self.suffix_compiles,
             "decode_compiles": self.decode_compiles,
             "decode_captured": self.decode_captured,
             "decode_capture_ms": self.decode_capture_ms,
+            "verify_compiles": self.verify_compiles,
+            "verify_captured": self.verify_captured,
+            "verify_capture_ms": self.verify_capture_ms,
             "jit_cache_entries": self.jit_cache_entries,
         }
 
@@ -239,8 +286,25 @@ class _Wave:
         dataclasses.field(default_factory=list)
     finalize: Optional[Dict[str, Any]] = None
     _tok_c: Optional[torch.Tensor] = None    # last chunk's packed argmax
+    # speculative-decoding fields (inert on plain waves). Spec waves
+    # advance rows at different rates, so they carry per-row ``row_pos``
+    # / ``row_t`` instead of the shared pos/t (a ring spec wave's
+    # ``cache`` is {k, v} alone); ``cap`` freezes a row once it has
+    # written every token it must emit; each verify appends one (E, Bb,
+    # k + 4) plane [greedy window | adv | acc | next token] to
+    # ``spec_pending``, drained by ``_materialize_spec`` into the host
+    # per-row token buffer ``host_buf`` (column 0 is the prefill token)
+    spec: bool = False
+    row_pos: Optional[torch.Tensor] = None   # (E, Bb, C) per-row slots
+    row_t: Optional[torch.Tensor] = None     # (E, Bb) per-row write pos
+    cap: Optional[torch.Tensor] = None       # (E, Bb) freeze position
+    spec_pending: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    host_buf: Optional[np.ndarray] = None    # (E, Bb, 1 + steps) int32
+    host_fill: Optional[np.ndarray] = None   # (E, Bb) tokens in host_buf
+    spec_seeded: bool = False                # host_buf column 0 written
     # tracing (inert under NULL_TRACER): device spans begun at enqueue,
-    # ended only inside _materialize, so tracing never adds a host block
+    # ended only inside _materialize / _materialize_spec, so tracing never
+    # adds a host block
     wave_id: int = 0
     sp_prefill: Any = None
     sp_decode: Any = None
@@ -268,9 +332,12 @@ class EngineCore:
     serial reference), or one batched copy per wave inside ``harvest()``
     in deferred mode. Runs on ``cuda`` unless ``device="cpu"``; the
     experts' params must already live there. On CUDA each decode bucket's
-    step is a captured graph unless ``capture_decode=False`` (the
-    counterpart of ``jax.disable_jit``), which runs the same step eagerly;
-    the CPU always runs it eagerly.
+    step (and each verify bucket's) is a captured graph unless
+    ``capture_decode=False`` (the counterpart of ``jax.disable_jit``),
+    which runs the same step eagerly; the CPU always runs it eagerly.
+    ``speculate_k`` > 0 drafts that many tokens a row with ``draft`` (a
+    ``DraftModel`` or its name, default ``"mlp"``), whose state is drawn
+    from a ``torch.Generator`` seeded 0 on the engine's device.
     """
 
     def __init__(self, model, params_list: Sequence[Any], *,
@@ -279,16 +346,14 @@ class EngineCore:
                  kv_layout: str = "ring", page_size: int = 8,
                  pool_pages: Optional[int] = None,
                  chunk_len: Optional[int] = None,
-                 speculate_k: int = 0, mesh=None, device=None,
-                 capture_decode: bool = True):
+                 speculate_k: int = 0,
+                 draft: "DraftModel | str | None" = None, mesh=None,
+                 device=None, capture_decode: bool = True):
         if not params_list:
             raise ValueError("EngineCore needs at least one expert")
         if kv_layout not in ("ring", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; expected "
                              "'ring' or 'paged'")
-        if speculate_k:
-            raise NotImplementedError(
-                "speculative decoding arrives with port slice A8")
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not part of the single-GPU port")
@@ -313,6 +378,8 @@ class EngineCore:
         self._suffix_shapes: set = set()     # (Bb, chunk index k >= 1)
         self.capture_decode = bool(capture_decode)
         self._graphs: Dict[int, DecodeGraph] = {}   # Bb -> its step
+        self._verify_graphs: Dict[Tuple[int, int], VerifyGraph] = {}
+        #   ^ (Bb, k) -> its verify step
         self._graph_pool = None              # CUDA: one pool, one stream
         self._graph_stream = None            #   for every bucket's graph
         # -- paged KV state (None in ring layout) ------------------------
@@ -373,6 +440,32 @@ class EngineCore:
                     f"of chunk_len={cl}; offending buckets {bad} (every "
                     "padded prompt must split into whole chunks)")
             self.chunk_len = cl
+        # -- speculative decoding ----------------------------------------
+        self.speculate_k = int(speculate_k)
+        self.draft: Optional[DraftModel] = None
+        self.draft_name: Optional[str] = None
+        self.draft_state = None
+        if self.speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got "
+                             f"{self.speculate_k}")
+        if self.speculate_k:
+            if not model.supports_verify:
+                raise ValueError(
+                    f"model family {model.cfg.family!r} does not "
+                    "implement the speculative verify protocol; use "
+                    "speculate_k=0")
+            d = draft if draft is not None else "mlp"
+            if isinstance(d, str):
+                d = build_draft(d, int(model.cfg.padded_vocab))
+            self.draft = d
+            self.draft_name = d.name
+            # engine-level state (leading E axis), updated in place by
+            # every verify, so an online draft keeps learning across waves
+            self.draft_state = d.init_state(
+                torch.Generator(device=self.device).manual_seed(0),
+                self.n_experts)
+        elif draft is not None:
+            raise ValueError("draft requires speculate_k > 0")
 
     def bind_tracer(self, tracer) -> None:
         """Install a lifecycle tracer (None restores NULL_TRACER)."""
@@ -391,7 +484,11 @@ class EngineCore:
         else:
             prefill = nB * len(self.len_buckets)
             suffix = 0
-        return {"prefill": prefill, "suffix": suffix, "decode": nB}
+        # the verify ladder is keyed (Bb, k) with k fixed per engine: at
+        # most one per batch bucket, none on an engine that never
+        # speculates
+        return {"prefill": prefill, "suffix": suffix, "decode": nB,
+                "verify": nB if self.speculate_k else 0}
 
     # -- device work -----------------------------------------------------
     def _expert_pool(self, e: int) -> Dict[str, torch.Tensor]:
@@ -447,6 +544,17 @@ class EngineCore:
             logits.append(lg)
         return _stack(logits)
 
+    def _new_graph(self, cls, *args):
+        """A step graph of this engine: captured on CUDA unless
+        ``capture_decode=False``; every graph of the engine shares one
+        memory pool and one capture stream."""
+        capture = self.capture_decode and self.device.type == "cuda"
+        if capture and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_stream = torch.cuda.Stream(self.device)
+        return cls(self, *args, capture=capture, pool=self._graph_pool,
+                   stream=self._graph_stream)
+
     def _decode_step(self, w: "_Wave") -> torch.Tensor:
         """One decode step of wave ``w`` through its bucket's
         ``DecodeGraph`` (made at the bucket's first step). Returns the
@@ -454,14 +562,80 @@ class EngineCore:
         Bb = w.tok.shape[1]
         g = self._graphs.get(Bb)
         if g is None:
-            capture = self.capture_decode and self.device.type == "cuda"
-            if capture and self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
-                self._graph_stream = torch.cuda.Stream(self.device)
-            g = self._graphs[Bb] = DecodeGraph(
-                self, Bb, capture=capture, pool=self._graph_pool,
-                stream=self._graph_stream)
+            g = self._graphs[Bb] = self._new_graph(DecodeGraph, Bb)
         return g.step(w)
+
+    def _verify_step(self, w: "_Wave") -> torch.Tensor:
+        """One verify of spec wave ``w`` through its (bucket, k)
+        ``VerifyGraph``. Returns the (E, Bb, k + 4) plane of its outputs,
+        a tensor of its own; ``w.tok``, ``w.row_pos`` and ``w.row_t``
+        advance."""
+        key = (w.tok.shape[1], self.speculate_k)
+        g = self._verify_graphs.get(key)
+        if g is None:
+            g = self._verify_graphs[key] = self._new_graph(VerifyGraph,
+                                                           *key)
+        return g.step(w)
+
+    def _verify(self, cache, table, row_pos, row_t, tok, cap, k: int
+                ) -> torch.Tensor:
+        """The body of a verify step, the counterpart of the reference's
+        fused ``_verify_fn``: per expert, the draft proposes ``k`` tokens
+        from each row's last one, the model scores the (Bb, k+1) window
+        (``verify`` on the ring cache {k, v} (E, L, Bb, C, KV, dh), or
+        ``paged_verify`` through ``table`` (E, Bb, n_logical)), and
+        ``_accept`` takes the matched prefix. ``row_pos`` (E, Bb, C),
+        ``row_t`` (E, Bb), the cache or pool and the draft state are
+        written in place; ``tok`` and ``cap`` (E, Bb) are read. Returns
+        the (E, Bb, k + 4) int32 plane [greedy window | adv | acc | next
+        token]."""
+        outs = []
+        for e in range(self.n_experts):
+            st = tree_map(lambda a: a[e], self.draft_state)
+            window = torch.cat([tok[e][:, None],
+                                self.draft.propose(st, tok[e], k)], dim=1)
+            if self.kv_layout == "paged":
+                greedy, _ = self.model.paged_verify(
+                    self.params[e], self._expert_pool(e), table[e],
+                    row_pos[e], row_t[e], {"tokens": window},
+                    page=self.page)
+            else:
+                greedy, _ = self.model.verify(
+                    self.params[e], {"k": cache["k"][e], "v": cache["v"][e]},
+                    row_pos[e], row_t[e], {"tokens": window})
+            outs.append(self._accept(window, greedy, row_pos[e], row_t[e],
+                                     tok[e], cap[e], st))
+        return _stack(outs)
+
+    def _accept(self, window, greedy, row_pos, row_t, tok, cap, dstate
+                ) -> torch.Tensor:
+        """One expert's accept step. The accepted prefix is the drafts
+        matching the greedy chain (a cumulative product); a row advances
+        ``adv = min(j + 1, cap - t)`` tokens (>= 1 while active, 0 once
+        frozen, where ``acc`` is -1); the slots the window wrote past the
+        accepted prefix roll back to pos -1 (the admission gate saw to it
+        that they held -1 before, never live context); the next feed
+        token is the last accepted greedy one; the draft observes the
+        verified transitions. ``row_pos`` / ``row_t`` / ``dstate`` in
+        place; returns (Bb, k + 4) int32 [greedy | adv | acc | tok']."""
+        K1 = window.shape[1]
+        dev = window.device
+        match = (window[:, 1:] == greedy[:, :-1]).to(torch.int32)
+        j = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+        remaining = (cap - row_t).clamp_min(0)
+        adv = torch.minimum(j + 1, remaining)
+        active = remaining > 0
+        acc = torch.where(active, j, -1)
+        ar = torch.arange(K1, dtype=torch.int32, device=dev)[None, :]
+        offs = row_t[:, None] + ar
+        row_pos.scatter_(1, (offs % row_pos.shape[1]).long(),
+                         torch.where(ar < adv[:, None], offs, -1))
+        last = greedy.gather(1, (adv - 1).clamp_min(0).long()[:, None])
+        tok2 = torch.where(active, last[:, 0], tok)
+        self.draft.observe(dstate, window, greedy, adv)
+        row_t.add_(adv)
+        return torch.cat([greedy, adv[:, None], acc[:, None],
+                          tok2[:, None]], dim=1)
 
     def _decode(self, cache, tok: torch.Tensor) -> torch.Tensor:
         """The body of a ring decode step over the model's own cache tree
@@ -522,6 +696,27 @@ class EngineCore:
         return (bucket_for(n_rows, self.batch_buckets),
                 bucket_for(prompt_len, self.len_buckets))
 
+    def _make_spec_wave(self, uids, per_row, done, Bb: int, Sb: int,
+                        steps: int, *, tok, row_pos, row_t, **fields
+                        ) -> _Wave:
+        """Assemble a speculative wave: the per-row position planes
+        (tensors of the wave's own: verifies advance them in place), the
+        per-row freeze position ``cap`` (a row stops once it has written
+        its last emitted token; padding rows freeze at once) and the host
+        token buffer. ``fields``: the ring cache, or the paged wave's
+        table, pages and prefixes to register."""
+        E = self.n_experts
+        cap = np.full((E, Bb), Sb, np.int32)
+        for local, ms in per_row.items():
+            for i, m in enumerate(ms):
+                cap[local, i] = Sb + m - 1
+        return _Wave(uids=uids, per_row_new=per_row, done=done, tok=tok,
+                     emitted=[tok[..., 0]], steps_left=steps, spec=True,
+                     row_pos=row_pos, row_t=row_t,
+                     cap=torch.from_numpy(cap).to(self.device),
+                     host_buf=np.zeros((E, Bb, steps + 1), np.int32),
+                     host_fill=np.zeros((E, Bb), np.int32), **fields)
+
     def admit_wave(self, groups: Mapping[int, Tuple[Sequence[Any],
                                                     Sequence[np.ndarray],
                                                     Sequence[int]]],
@@ -573,6 +768,7 @@ class EngineCore:
             per_row[local] = [max(1, int(m)) for m in max_new]
             done[local] = [False] * len(u)
             n_rows += len(u)
+        fb0 = self.stats.spec_fallback_waves
         if self.kv_layout == "paged":
             # may raise PagePoolExhausted with nothing changed — the
             # scheduler requeues the rows as backpressure; the device span
@@ -585,9 +781,23 @@ class EngineCore:
             self.stats.prefill_tokens_computed += n_rows * Sb
             tok = self._sample(logits)
             steps = max(m for ms in per_row.values() for m in ms) - 1
-            w = _Wave(uids=uids, per_row_new=per_row, done=done,
-                      cache=cache, tok=tok, emitted=[tok[..., 0]],
-                      steps_left=steps)
+            sk = self.speculate_k
+            # no-wrap gate: every slot a verify may optimistically write
+            # (up to Sb + steps - 1 + k) must fit the ring without
+            # wrapping onto live context
+            if sk and steps > 0 and Sb + steps + sk <= self.max_len:
+                C = self.max_len
+                w = self._make_spec_wave(
+                    uids, per_row, done, Bb, Sb, steps,
+                    cache={"k": cache["k"], "v": cache["v"]}, tok=tok,
+                    row_pos=cache["pos"][:, None].expand(E, Bb, C).clone(),
+                    row_t=cache["t"][:, None].expand(E, Bb).clone())
+            else:
+                if sk:
+                    self.stats.spec_fallback_waves += 1
+                w = _Wave(uids=uids, per_row_new=per_row, done=done,
+                          cache=cache, tok=tok, emitted=[tok[..., 0]],
+                          steps_left=steps)
         self.stats.rows_served += n_rows
         self.stats.rows_padded += E * Bb - n_rows
         self.stats.prefill_tokens_submitted += n_submitted
@@ -596,8 +806,10 @@ class EngineCore:
             flat = [u for us in uids.values() for u in us]
             w.sp_prefill = self.tracer.begin_device(
                 "wave.prefill", wave=w.wave_id, Bb=Bb, Sb=Sb,
-                rows=n_rows, spec=False, chunks=len(w.pending_chunks),
+                rows=n_rows, spec=w.spec, chunks=len(w.pending_chunks),
                 uids=flat, traces=[self.tracer.trace_of(u) for u in flat])
+            if self.stats.spec_fallback_waves > fb0:
+                self.tracer.event("spec.fallback", wave=w.wave_id)
         self._active.append(w)
         if not defer:
             # blocking reference: drain the wave's prefill chunks (none on
@@ -664,7 +876,20 @@ class EngineCore:
         chunked = self.chunk_len is not None and Sb > self.chunk_len
         ppc = (self.chunk_len // page) if chunked else npp
         start_chunk: Dict[Tuple[int, int], int] = {}
-        wr_pages = sorted({(s % C) // page for s in range(Sb, Sb + steps)})
+        # speculative gate: a row's last verify may start at Sb + steps - 1
+        # and write k slots past it, so the whole write window [Sb, Sb +
+        # steps + k) must fit without wrapping — which also keeps every
+        # speculative write inside pages the row owns (never a shared
+        # prompt page) and copy-on-write out of the picture. Chunked waves
+        # fall back to plain decode (the same tokens, not accelerated).
+        sk = self.speculate_k
+        spec_ok = bool(sk) and steps > 0 and Sb + steps + sk <= C \
+            and not chunked
+        if sk and not spec_ok:
+            self.stats.spec_fallback_waves += 1
+        slack = sk if spec_ok else 0
+        wr_pages = sorted({(s % C) // page
+                           for s in range(Sb, Sb + steps + slack)})
         wr_prompt = [lp for lp in wr_pages if lp < npp]
         wr_decode = [lp for lp in wr_pages if lp >= npp]
         register_ok = not wr_prompt      # decode never clobbers a prefix
@@ -873,6 +1098,13 @@ class EngineCore:
         pos_dev = torch.from_numpy(
             np.broadcast_to(pos, (E, C)).copy()).to(self.device)
         t_dev = torch.full((E,), Sb, dtype=torch.int32, device=self.device)
+        if spec_ok:
+            # per-row position planes (rows advance at different rates)
+            return self._make_spec_wave(
+                uids, per_row, done, Bb, Sb, steps, tok=tok[..., None],
+                row_pos=pos_dev[:, None].expand(E, Bb, C).clone(),
+                row_t=t_dev[:, None].expand(E, Bb).clone(), cache=None,
+                table=table_dev, pages_held=pages_held, register=register)
         w = _Wave(uids=uids, per_row_new=per_row, done=done, cache=None,
                   tok=None, emitted=[], steps_left=steps, table=table_dev,
                   pos=pos_dev, t=t_dev, pages_held=pages_held,
@@ -980,7 +1212,14 @@ class EngineCore:
             if w.steps_left > 0:
                 if w.sp_decode is None and self.tracer.enabled:
                     w.sp_decode = self.tracer.begin_device(
-                        "wave.decode", wave=w.wave_id, Bb=w.tok.shape[1])
+                        "wave.verify" if w.spec else "wave.decode",
+                        wave=w.wave_id, Bb=w.tok.shape[1])
+                if w.spec:
+                    self._spec_tick(w)
+                    advanced += 1
+                    if not defer:
+                        self._materialize_spec(w)
+                    continue
                 # a plane of its own: planes wait on the device until
                 # harvest, and the graph's static output is overwritten
                 w.tok = self._decode_step(w)
@@ -993,6 +1232,17 @@ class EngineCore:
         if not defer:
             self.harvest()
         return advanced
+
+    def _spec_tick(self, w: _Wave) -> None:
+        """One verify of a speculative wave: every active row advances by
+        at least one token (the corrected greedy token when every draft
+        misses), so the wave ends within ``steps`` verifies and usually
+        far fewer. ``steps_left`` stays the plain tick count's upper
+        bound; harvest zeroes it once every row has its tokens."""
+        w.spec_pending.append(self._verify_step(w))
+        w.steps_left -= 1
+        self.stats.decode_steps += 1
+        self.stats.verify_steps += 1
 
     # -- harvest ---------------------------------------------------------
     def _materialize(self, w: _Wave, upto: int) -> None:
@@ -1015,10 +1265,108 @@ class EngineCore:
             self.tracer.end_device(w.sp_decode, planes=upto)
             w.sp_decode = None
 
+    def _materialize_spec(self, w: _Wave) -> None:
+        """Bring a speculative wave's pending verify planes (and the
+        prefill token plane the first time) to the host in one blocking
+        copy, and advance each row's token buffer by its *actual* advance:
+        the host learns real progress, which lets harvest retire the wave
+        after about steps / E[adv] verifies instead of steps. Counted as
+        one host block, as the reference counts it, even when only the
+        already-host prefill plane is left to seed."""
+        if w.spec_seeded and not w.spec_pending:
+            return
+        E, Bb = w.host_fill.shape
+        first = w.emitted[0]
+        parts = [p.reshape(-1) for p in w.spec_pending]
+        if torch.is_tensor(first):
+            parts.insert(0, first.reshape(-1))
+        host = torch.cat(parts).cpu().numpy() if parts else None
+        self.stats.host_blocks += 1
+        # the copy above completed everything enqueued for this wave, so
+        # its open device spans close here
+        if w.sp_prefill is not None:
+            self.tracer.end_device(w.sp_prefill)
+            w.sp_prefill = None
+        if w.sp_decode is not None:
+            self.tracer.end_device(w.sp_decode,
+                                   verifies=len(w.spec_pending))
+            w.sp_decode = None
+        if torch.is_tensor(first):
+            w.emitted[0] = host[:E * Bb].reshape(E, Bb)
+            host = host[E * Bb:]
+        if not w.spec_seeded:
+            w.n_host = max(w.n_host, 1)
+            w.host_buf[:, :, 0] = w.emitted[0]
+            np.maximum(w.host_fill, 1, out=w.host_fill)
+            w.spec_seeded = True
+        k = self.speculate_k
+        K1 = k + 1
+        planes = host.reshape(len(w.spec_pending), E, Bb, k + 4) \
+            if w.spec_pending else ()
+        for plane in planes:
+            for local, row_uids in w.uids.items():
+                for i in range(len(row_uids)):
+                    a = int(plane[local, i, K1])
+                    if a > 0:
+                        f = int(w.host_fill[local, i])
+                        w.host_buf[local, i, f:f + a] = plane[local, i, :a]
+                        w.host_fill[local, i] = f + a
+                    c = int(plane[local, i, K1 + 1])
+                    if c >= 0:
+                        self.stats.tokens_drafted += k
+                        self.stats.tokens_accepted += c
+        w.spec_pending = []
+
+    def _harvest_spec(self, w: _Wave) -> None:
+        """Emit every speculative row whose token buffer is full; once all
+        rows are done, zero ``steps_left`` so the wave retires now rather
+        than after its remaining tick budget.
+
+        The copy is gated as plain waves gate ``_materialize`` (``need >
+        n_host``): a verify advances a row by at most ``k + 1`` tokens, so
+        until the pending planes could complete some unfinished row there
+        is nothing to emit and the sync is skipped — without this, spec
+        waves would block the host at every harvest."""
+        if w.spec_pending and w.steps_left > 0:
+            bound = (len(w.spec_pending) * (self.speculate_k + 1)
+                     + (0 if w.spec_seeded else 1))
+            if not any(not w.done[local][i]
+                       and w.host_fill[local, i] + bound
+                       >= w.per_row_new[local][i]
+                       for local, row_uids in w.uids.items()
+                       for i in range(len(row_uids))):
+                return
+        self._materialize_spec(w)
+        for local, row_uids in w.uids.items():
+            for i, uid in enumerate(row_uids):
+                if w.done[local][i]:
+                    continue
+                n = w.per_row_new[local][i]
+                if w.host_fill[local, i] >= n:
+                    seq = np.array(w.host_buf[local, i, :n], np.int32)
+                    self._finished.append((local, uid, seq))
+                    self.stats.tokens_generated += n
+                    w.done[local][i] = True
+        if all(all(d) for d in w.done.values()):
+            w.steps_left = 0
+            self._retire(w)
+
+    def _retire(self, w: _Wave) -> None:
+        """Drop a finished wave: nothing of it needs copying out of any
+        step graph any more, and a paged wave's pages go back."""
+        self._active.remove(w)
+        for g in (*self._graphs.values(), *self._verify_graphs.values()):
+            g.release(w)
+        if self.kv_layout == "paged":
+            self._retire_paged(w)
+
     def harvest(self) -> None:
         """Emit every row whose ``max_new`` tokens are all available and
         retire fully-done waves (at most one host block per wave)."""
         for w in list(self._active):
+            if w.spec:
+                self._harvest_spec(w)
+                continue
             have = len(w.emitted)
             need = 0
             for local, row_uids in w.uids.items():
@@ -1039,11 +1387,7 @@ class EngineCore:
                     self.stats.tokens_generated += len(seq)
                     w.done[local][i] = True
             if w.steps_left <= 0 and all(all(d) for d in w.done.values()):
-                self._active.remove(w)
-                for g in self._graphs.values():
-                    g.release(w)
-                if self.kv_layout == "paged":
-                    self._retire_paged(w)
+                self._retire(w)
 
     def _retire_paged(self, w: _Wave) -> None:
         """Register computed prefixes in the cross-wave cache (the first

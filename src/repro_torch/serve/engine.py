@@ -11,6 +11,10 @@ What the engine guarantees (see ``EngineCore`` for mechanics):
     cache, or (``kv_layout="paged"``) the engine's page pool, with
     prefix sharing, copy-on-write and chunked prefill (``chunk_len``);
     one step per decode batch bucket, a captured CUDA graph on the card;
+  * with ``speculate_k`` > 0 a draft (``draft``: a ``DraftModel`` or
+    ``"mlp"`` / ``"table"`` / ``"always-wrong"``) proposes that many
+    tokens a row and one verify step scores them all, with the same
+    tokens as plain decode;
   * per-row results are emitted as soon as a row has its
     ``max_new_tokens``, not when its whole group retires.
 """
@@ -33,7 +37,8 @@ class ExpertEngine:
     be shared with other engines: the engine never copies them). On CUDA
     each decode bucket's step is captured once as a CUDA graph and
     replayed; ``capture_decode=False`` runs the same step eagerly (read
-    only on CUDA: the CPU is always eager)."""
+    only on CUDA: the CPU is always eager). ``speculate_k`` > 0 serves
+    waves by draft-k/verify-1 speculative decoding with ``draft``."""
 
     def __init__(self, model: BaseModel, params, *, max_len: int = 256,
                  min_len_bucket: int = 8,
@@ -41,14 +46,15 @@ class ExpertEngine:
                  kv_layout: str = "ring", page_size: int = 8,
                  pool_pages: Optional[int] = None,
                  chunk_len: Optional[int] = None,
-                 speculate_k: int = 0, device=None,
+                 speculate_k: int = 0, draft=None, device=None,
                  capture_decode: bool = True):
         self.core = EngineCore(model, [params], max_len=max_len,
                                min_len_bucket=min_len_bucket,
                                batch_buckets=batch_buckets,
                                kv_layout=kv_layout, page_size=page_size,
                                pool_pages=pool_pages, chunk_len=chunk_len,
-                               speculate_k=speculate_k, device=device,
+                               speculate_k=speculate_k, draft=draft,
+                               device=device,
                                capture_decode=capture_decode)
         self.model = model
         self.params = params

@@ -3,6 +3,8 @@ CUDA graph and replayed for every later step of every wave at that
 bucket: the counterpart of the reference's ``EngineCore._decode_fn(Bb)``
 (``jax.jit(jax.vmap(model.decode), donate_argnums=(1,))``, one
 executable per batch bucket, the cache donated and so written in place).
+``VerifyGraph`` is the same for a speculative engine's verify step, one
+per (engine, batch bucket, k), the counterpart of ``_verify_fn(Bb, k)``.
 
 A CUDA graph reads and writes fixed addresses, so a ``DecodeGraph``
 owns static buffers: the token plane it reads, the token plane it
@@ -33,6 +35,16 @@ no silent eager fallback. ``capture=False`` (the engine's
 static buffers, so the residency and copy-out logic is the same on
 every device.
 
+A verify step (``VerifyGraph``) runs propose, verify, accept and
+observe in one body. Ring spec waves swap their K/V through the static
+state as decode waves do; ring and paged spec waves copy their per-row
+``row_pos`` (E, Bb, C), ``row_t`` (E, Bb), ``cap`` and token plane in
+(paged waves their page table too) and ``row_pos``/``row_t`` back out.
+The draft's state is the engine's, updated in place at fixed addresses.
+The outputs (greedy window, advance, accepted count, next token) are
+packed in one static plane and cloned out: they wait on the device until
+harvest.
+
 The kernel wrappers count Python calls. A capture calls them without
 launching anything, a replay launches without calling them: the graph
 records each wrapper's count during capture, takes it back, and adds it
@@ -41,38 +53,32 @@ say how many kernels ran.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Dict, Optional
 
 import torch
 
 from ..kernels import ops
+from ..tree import tree_map
 
 
-def tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of equal structure."""
-    if isinstance(trees[0], dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
+def _i32(shape, dev) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.int32, device=dev)
 
 
-class DecodeGraph:
-    """The decode step of one ``EngineCore`` at batch bucket ``Bb``."""
+class _StepGraph:
+    """What a decode and a verify step share: eager, capture and replay on
+    static buffers, and the residency of ring waves' caches."""
 
     def __init__(self, core, Bb: int, *, capture: bool,
                  pool: Any = None,
                  stream: Optional["torch.cuda.Stream"] = None):
-        E, dev = core.n_experts, core.device
         self.core, self.Bb = core, Bb
         self.paged = core.kv_layout == "paged"
-        self.tok = torch.zeros((E, Bb, 1), dtype=torch.int32, device=dev)
-        self.out = torch.zeros_like(self.tok)
         if self.paged:
-            self.table = torch.zeros((E, Bb, core.n_logical),
-                                     dtype=torch.int32, device=dev)
-            self.pos = torch.zeros((E, core.max_len), dtype=torch.int32,
-                                   device=dev)
-            self.t = torch.zeros((E,), dtype=torch.int32, device=dev)
+            self.table = _i32((core.n_experts, Bb, core.n_logical),
+                              core.device)
         self.state: Optional[Dict[str, Any]] = None   # ring: static cache
         self.resident = None                 # ring: the wave it belongs to
         self.capture = capture               # CUDA only (the core decides)
@@ -81,6 +87,87 @@ class DecodeGraph:
         self.steps = 0
         self.capture_ms = 0.0                # host clock, capture only
         self.launches: Dict[str, int] = {}   # wrapper launches a replay
+
+    def _body(self) -> None:
+        raise NotImplementedError
+
+    def _run(self) -> None:
+        if not self.capture:
+            self._body()
+        elif self.steps == 0:
+            cur = torch.cuda.current_stream()
+            self._stream.wait_stream(cur)
+            with torch.cuda.stream(self._stream):
+                self._body()
+            cur.wait_stream(self._stream)
+        else:
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            ops.add_launches(self.launches)
+        self.steps += 1
+
+    def _capture(self) -> None:
+        before = ops.launches()
+        # a dead engine's graphs sit in reference cycles (core <-> stats,
+        # core <-> graph); were the cyclic collector to destroy one while
+        # this capture runs, the destruction would invalidate the capture
+        # (global capture mode), and torch.cuda.graph no longer collects
+        # on entry: collect first, and keep the collector off until the
+        # capture ends
+        gc.collect()
+        was_on = gc.isenabled()
+        gc.disable()
+        t0 = time.perf_counter()
+        try:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream):
+                self._body()
+        finally:
+            if was_on:
+                gc.enable()
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        after = ops.launches()
+        self.launches = {k: n - before[k] for k, n in after.items()
+                         if n != before[k]}
+        ops.add_launches({k: -n for k, n in self.launches.items()})
+        self.graph = graph
+
+    # -- ring residency --------------------------------------------------
+    def _make_resident(self, w) -> None:
+        if self.resident is w:
+            return
+        if self.state is None:
+            self.state = w.cache             # adopt: no copy
+        else:
+            r = self.resident
+            if r is not None:
+                if r.cache is self.state:    # the adopted wave
+                    r.cache = tree_map(torch.clone, self.state)
+                else:
+                    tree_map(lambda d, s: d.copy_(s), r.cache, self.state)
+            tree_map(lambda d, s: d.copy_(s), self.state, w.cache)
+            self.core.stats.decode_swaps += 1
+        self.resident = w
+
+    def release(self, w) -> None:
+        """``w`` retired: nothing of it needs copying out any more."""
+        if self.resident is w:
+            self.resident = None
+
+
+class DecodeGraph(_StepGraph):
+    """The decode step of one ``EngineCore`` at batch bucket ``Bb``."""
+
+    def __init__(self, core, Bb: int, **kw):
+        super().__init__(core, Bb, **kw)
+        E, dev = core.n_experts, core.device
+        self.tok = _i32((E, Bb, 1), dev)
+        self.out = torch.zeros_like(self.tok)
+        if self.paged:
+            self.pos = _i32((E, core.max_len), dev)
+            self.t = _i32((E,), dev)
 
     # -- the step --------------------------------------------------------
     def step(self, w) -> torch.Tensor:
@@ -110,53 +197,43 @@ class DecodeGraph:
             logits = core._decode(self.state, self.tok)
         self.out.copy_(core._sample(logits))
 
-    def _run(self) -> None:
-        if not self.capture:
-            self._body()
-        elif self.steps == 0:
-            cur = torch.cuda.current_stream()
-            self._stream.wait_stream(cur)
-            with torch.cuda.stream(self._stream):
-                self._body()
-            cur.wait_stream(self._stream)
+
+class VerifyGraph(_StepGraph):
+    """The speculative verify step of one ``EngineCore`` at batch bucket
+    ``Bb``, with ``k`` drafts a row (fixed per engine)."""
+
+    def __init__(self, core, Bb: int, k: int, **kw):
+        super().__init__(core, Bb, **kw)
+        E, dev = core.n_experts, core.device
+        self.k = k
+        self.tok = _i32((E, Bb), dev)
+        self.cap = _i32((E, Bb), dev)
+        self.pos = _i32((E, Bb, core.max_len), dev)
+        self.t = _i32((E, Bb), dev)
+        # greedy window (k + 1), advance, accepted drafts, next token
+        self.out = _i32((E, Bb, k + 4), dev)
+
+    def step(self, w) -> torch.Tensor:
+        """One verify of spec wave ``w``: its ``row_pos``/``row_t`` advance
+        in place and ``w.tok`` becomes the next feed token. Returns the
+        (E, Bb, k + 4) int32 plane [greedy window | adv | acc | next
+        token] in a tensor of its own."""
+        if self.paged:
+            self.table.copy_(w.table)
         else:
-            if self.graph is None:
-                self._capture()
-            self.graph.replay()
-            ops.add_launches(self.launches)
-        self.steps += 1
+            self._make_resident(w)
+        self.pos.copy_(w.row_pos)
+        self.t.copy_(w.row_t)
+        self.cap.copy_(w.cap)
+        self.tok.copy_(w.tok[..., 0])
+        self._run()
+        w.row_pos.copy_(self.pos)
+        w.row_t.copy_(self.t)
+        out = self.out.clone()
+        w.tok = out[..., self.k + 3:]
+        return out
 
-    def _capture(self) -> None:
-        before = ops.launches()
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-            self._body()
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        after = ops.launches()
-        self.launches = {k: n - before[k] for k, n in after.items()
-                         if n != before[k]}
-        ops.add_launches({k: -n for k, n in self.launches.items()})
-        self.graph = graph
-
-    # -- ring residency --------------------------------------------------
-    def _make_resident(self, w) -> None:
-        if self.resident is w:
-            return
-        if self.state is None:
-            self.state = w.cache             # adopt: no copy
-        else:
-            r = self.resident
-            if r is not None:
-                if r.cache is self.state:    # the adopted wave
-                    r.cache = tree_map(torch.clone, self.state)
-                else:
-                    tree_map(lambda d, s: d.copy_(s), r.cache, self.state)
-            tree_map(lambda d, s: d.copy_(s), self.state, w.cache)
-            self.core.stats.decode_swaps += 1
-        self.resident = w
-
-    def release(self, w) -> None:
-        """``w`` retired: nothing of it needs copying out any more."""
-        if self.resident is w:
-            self.resident = None
+    def _body(self) -> None:
+        self.out.copy_(self.core._verify(
+            self.state, self.table if self.paged else None, self.pos,
+            self.t, self.tok, self.cap, self.k))

@@ -77,6 +77,12 @@ class SchedulerConfig:
     #                                 pending prefill chunks each step
     #                                 (0 = unbounded); at least one chunk
     #                                 always dispatches
+    speculate_k: Optional[int] = None
+    #                                 None takes each engine as it was
+    #                                 built; an int asserts every tickable
+    #                                 shard engine was built with exactly
+    #                                 that speculate_k (engines own their
+    #                                 verify steps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +151,16 @@ class Scheduler:
         self.shards = [Shard(sid=e, experts=(e,))
                        for e in range(len(registry))]
         self._shard_of = {e: s.sid for s in self.shards for e in s.experts}
+        if self.config.speculate_k is not None:
+            want = int(self.config.speculate_k)
+            for shard in self.shards:
+                eng = self._shard_engine(shard)
+                if eng is not None and eng.core.speculate_k != want:
+                    raise ValueError(
+                        f"SchedulerConfig.speculate_k={want} but shard "
+                        f"{shard.sid}'s engine was built with speculate_k="
+                        f"{eng.core.speculate_k}; rebuild its engine with "
+                        "the matching speculate_k")
         # queues[expert][len_bucket] -> FIFO of _Pending
         self.queues: Dict[int, Dict[int, collections.deque]] = \
             collections.defaultdict(lambda: collections.defaultdict(
@@ -186,8 +202,9 @@ class Scheduler:
 
     def _build_metrics(self) -> MetricsRegistry:
         """The snapshot tree: scheduler counters + queue and stall
-        latency, every engine's ``EngineStats``, every paged shard's page
-        pool counters and the router."""
+        latency, every engine's ``EngineStats`` (and its draft's identity
+        where it speculates), every paged shard's page pool counters and
+        the router."""
         obs = MetricsRegistry()
         obs.register("scheduler", lambda: self.stats.as_dict())
         obs.register("scheduler/latency/queue_ms", self._h_queue)
@@ -201,6 +218,9 @@ class Scheduler:
                 if eng.core.pool is not None:
                     obs.register(f"kv/shard{shard.sid}",
                                  eng.core.pool.telemetry)
+                if eng.core.draft is not None:
+                    obs.register(f"engines/shard{shard.sid}/draft",
+                                 eng.core.draft.describe())
         if self.router is not None:
             obs.register("router", self._router_metrics)
         return obs
@@ -209,6 +229,23 @@ class Scheduler:
         r = self.router
         return {**r.stats, "expert_hits": dict(r.expert_hits),
                 "prefix_lru": dict(self.prefix_lru.stats)}
+
+    def speculative_stats(self) -> Dict[str, Any]:
+        """Speculative-decoding counters summed over every tickable
+        shard."""
+        drafted = accepted = verifies = fallback = 0
+        for shard in self.shards:
+            eng = self._shard_engine(shard)
+            if eng is None:
+                continue
+            st = eng.stats
+            drafted += st.tokens_drafted
+            accepted += st.tokens_accepted
+            verifies += st.verify_steps
+            fallback += st.spec_fallback_waves
+        return {"tokens_drafted": drafted, "tokens_accepted": accepted,
+                "verify_steps": verifies, "spec_fallback_waves": fallback,
+                "acceptance_rate": accepted / drafted if drafted else 0.0}
 
     # -- admission -------------------------------------------------------
     def submit(self, requests: Sequence[Request]) -> int:
@@ -566,7 +603,8 @@ class RoutedServer:
     reference) picks how each step drives its shards; both give identical
     tokens. ``prefill_tokens_per_step`` bounds the chunked-prefill tokens
     each paged shard issues per step; ``check_every`` runs the page-pool
-    invariant check every N steps. Runs on ``cuda`` unless
+    invariant check every N steps; ``speculate_k``, where given, asserts
+    every engine was built with it (``SchedulerConfig.speculate_k``). Runs on ``cuda`` unless
     ``device="cpu"``; the matcher and the engines must live there.
     ``placement`` and ``hub`` arrive with port slice A9.
     """
@@ -577,7 +615,8 @@ class RoutedServer:
                  use_fine_kernel: bool = True, placement=None,
                  executor: "str | DispatchExecutor" = "overlapped",
                  hub=None, check_every: int = 0,
-                 prefill_tokens_per_step: int = 0, tracer=None,
+                 prefill_tokens_per_step: int = 0,
+                 speculate_k: Optional[int] = None, tracer=None,
                  device=None):
         if placement is not None:
             raise NotImplementedError(
@@ -608,7 +647,8 @@ class RoutedServer:
         self.scheduler = Scheduler(
             self.router, registry,
             SchedulerConfig(max_batch=max_batch, check_every=check_every,
-                            prefill_tokens_per_step=prefill_tokens_per_step),
+                            prefill_tokens_per_step=prefill_tokens_per_step,
+                            speculate_k=speculate_k),
             executor=executor, tracer=tracer)
         #: the unified metrics registry — ``obs.snapshot()`` is the whole
         #: server's state as one nested dict

@@ -400,3 +400,62 @@ def test_cuda_a_body_that_syncs_inside_the_capture_raises(cuda):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.split()[:2] == ["RAISED", "0"], out.stdout
+
+
+#: a dead engine's captured graph waits in reference cycles (core <->
+#: stats, core <-> graph) for the cyclic collector; here the collector
+#: runs inside the next capture, as it may whenever it comes due there
+GARBAGE_DURING_CAPTURE = """
+import gc, numpy as np, torch
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.serve import ExpertEngine
+model = build_model(get_config("llama3_2_1b").reduced(name="gc"))
+params = model.init(torch.Generator(device="cuda").manual_seed(8),
+                    device="cuda")
+rng = np.random.default_rng(0)
+prompts = [rng.integers(0, 300, size=9) for _ in range(2)]
+def engine():
+    eng = ExpertEngine(model, params, max_len=64, device="cuda")
+    eng.admit([0, 1], prompts, [6, 6], defer=True)
+    eng.tick(defer=True)
+    return eng
+gc.disable()
+dead = engine()
+dead.tick(defer=True)
+assert dead.stats.decode_captured == 1
+del dead
+live = engine()
+decode = live.core._decode
+def collecting(cache, tok):
+    if torch.cuda.is_current_stream_capturing():
+        gc.collect()
+    return decode(cache, tok)
+live.core._decode = collecting
+try:
+    live.tick(defer=True)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("FAILED", type(e).__name__)
+else:
+    print("CAPTURED", live.stats.decode_captured)
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_a_dead_engines_graph_is_not_freed_inside_a_capture(cuda):
+    """Destroying a CUDA graph while another is being captured invalidates
+    that capture (torch.cuda.graph does not collect garbage on entry).
+    The step graph collects before it captures, so a dead engine's graph
+    is gone before capture begins and the collector running inside the
+    capture frees nothing that touches the card."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    out = subprocess.run([sys.executable, "-c", GARBAGE_DURING_CAPTURE],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[:2] == ["CAPTURED", "1"], out.stdout
