@@ -18,7 +18,10 @@ Phases, each printing one JSON line:
    greedy tokens must be equal. Then the same f32 expert speculates on
    the card (``table`` draft, k 1 and 4, ring and paged, each verify a
    replay of its captured verify graph): its tokens must equal the CPU's
-   plain-decode tokens.
+   plain-decode tokens. Then four reduced f32 experts serve pre-routed
+   traffic as a bank (``plan_placement``) and through a 2-slot
+   ``ExpertHub`` staged from host memory, on the card and on the CPU:
+   tokens and the hub's counters must be equal.
 3. serve — the ring-KV main path: an AE-bank matcher (K = 6, 784 -> 128,
    coarse scoring through ``expert_score``, fine through one grouped
    ``cosine_fine`` launch per route chunk) in front of six full-width
@@ -35,7 +38,7 @@ Phases, each printing one JSON line:
    path must have launched, ``expert_score`` and ``cosine_scores``
    exactly once per route chunk with misses (counted by wrapping the
    router's per-chunk fine match, ``Router._fine_grouped``, here and in
-   phases 4, 6 and 7), each request's expert
+   phases 4 and 6-9), each request's expert
    and fine class must equal the CPU plain path's (a Router over a CPU
    copy of the bank), and the two executors' tokens must be equal.
 4. serve_paged — the paged-KV path: the same matcher in front of six
@@ -74,7 +77,31 @@ Phases, each printing one JSON line:
    ``always-wrong`` wave (acceptance 0, max(max_new) - 1 verifies) and
    the engine's own verify tick (the breakdown's wave), replayed and
    eager.
-7. serve_rwkv — a mixed-family server, as the reference's launcher
+7. serve_banked — the serve phase's six engines placed as one bank
+   (``plan_placement``: one ``BankedEngine`` of E = 6 on the same weight
+   tensors, one captured decode step per batch bucket for all six)
+   serving the serve phase's 24 requests: graph serial, graph
+   overlapped, eager serial, eager overlapped, every run's tokens equal
+   to the first's and each row equal to the per-engine fleet's or a
+   reported near tie (the bank's decode bucket is the largest over its
+   members, so its bf16 GEMMs run at other M); ``decode_attention`` E x
+   n_layers times a bank step (a bank steps every member, rows or not).
+   Then a paged bank on the serve_paged phase's cohort traffic (B4 only,
+   pool books balanced) and the bank's own tick.
+8. serve_hub — an ``ExpertHub`` of 2 slots over a catalog of the same
+   six experts saved ``cold`` into a store under a temporary directory
+   (removed at the end), behind the serve phase's matcher: ``warmup``,
+   then 24 requests (a catalog sweep, then Zipf(1.1) over expert rank)
+   serial and overlapped. Held: every expert served, evictions, no
+   capture after the warmup (installs copy into the slots' tensors in
+   place), the hub's invariants and pin conservation every step, and
+   each row equal to the bank's on the same requests or a reported near
+   tie. Printed: the hub's counters, stage and commit ms per expert, an
+   install timed to completion against a measured pinned host link, the
+   store's size and write time, host and device memory, the split of a
+   serve between ``_service_hub`` and the rest, and the tick of the
+   2-slot bank beside the 6-member bank's and a single engine's.
+9. serve_rwkv — a mixed-family server, as the reference's launcher
    builds one: an AE bank of K = 4 in front of two full-width bf16
    ``rwkv6_7b`` engines (random seeded weights, ring, ``max_len`` 256)
    and two ``llama3_2_1b`` engines sharing the serve phase's weight
@@ -85,10 +112,10 @@ Phases, each printing one JSON line:
    layer goes through ``wkv_step`` (32 launches per RWKV decode step) and
    every llama one through ``decode_attention``; every run's tokens must
    equal the first's, ``host_blocks`` 192 / 12.
-8. breakdown_rwkv — one RWKV decode step at that phase's largest RWKV
+10. breakdown_rwkv — one RWKV decode step at that phase's largest RWKV
    decode bucket, timed as in phase 5, with ``wkv_step``'s share, and the
    engine's own tick replayed and eager.
-9. kernels — each kernel against its plain PyTorch version on the same
+11. kernels — each kernel against its plain PyTorch version on the same
    inputs at the shapes its serve phase gave it (tolerance stated), and
    its device time beside the plain version's, a library yardstick's and
    its bound (L2 flushed before every timed launch, as the serving path
@@ -112,7 +139,7 @@ Phases, each printing one JSON line:
    ring row adds a long-ring case (B = 1, 4000 of 4096 slots live) beside
    SDPA.
 
-10. train_bank — the paper's protocol on the card: the six generators at
+12. train_bank — the paper's protocol on the card: the six generators at
    their Table 1 counts (``load_benchmark``), one ``fit_ae`` and one
    ``fit_mlp`` step from one init on the card and on the CPU (leaves at
    rtol 1e-5 where the gradient is at least 1e-5, within the step's
@@ -130,7 +157,7 @@ Phases, each printing one JSON line:
    ``expert_score`` launch at up to 11274 rows) against the plain
    version, and the kernel timed on the trained bank at B 256 and at the
    largest split; then ``train_mlp`` on the same splits and its accuracy.
-11. train_lm — 20 ``Trainer`` steps of full-width bf16 ``llama3_2_1b``
+13. train_lm — 20 ``Trainer`` steps of full-width bf16 ``llama3_2_1b``
    (remat, 2 microbatches, clip 1.0) and 10 of ``rwkv6_7b`` at published
    widths cut to 4 layers, on ``synthetic_token_stream`` at seq 128 x
    batch 8: ms a step (median of the last 10), tokens/s, 6 x params x
@@ -142,13 +169,14 @@ The reference phase (2) also runs a reduced f32 ``rwkv6_7b`` expert
 (``ssm_chunk`` 16) on the card and on the CPU, through both of its
 prefill branches: logits must agree and greedy tokens be equal.
 
-Phases 3, 4, 6 and 7 report each run's seconds, decode steps, residency
+Phases 3, 4 and 6-9 report each run's seconds, decode steps, residency
 swaps and captures, and the fleet's graphs (``graphs``: step objects,
 graphs captured, host ms of the captures, swaps).
 
 Then a summary line ``{"kernels": [...], "launch_floor_ms": ...}`` (rows
 3-5 with ``ms_in_graph_step``, their time per launch inside the
-engine's replayed step; rows 1-2 with ``launches_train_bank``), the
+engine's replayed step; rows 1-4 with ``launches_banked`` and
+``launches_hub``, rows 1-2 with ``launches_train_bank``), the
 raw ``nvidia-smi`` name and power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result, as it does without a CUDA device.
@@ -213,6 +241,15 @@ def main() -> int:
     dense = breakdown_phase(np, torch, dev, shapes)
     emit(dense)
     emit(serve_spec_phase(np, torch, dev, ops, shapes, dense["engine"]))
+    banked, fleet = serve_banked_phase(np, torch, dev, ops, shapes)
+    emit(banked)
+    hub = serve_hub_phase(np, torch, dev, ops, shapes, fleet, {
+        "bank": banked["bank_tick"],
+        "single": dense["engine"]["graph_wall_ms_per_step"]})
+    emit(hub)
+    del fleet                        # the bank's caches and graphs
+    gc.collect()
+    torch.cuda.empty_cache()
     rwkv, rshapes = serve_rwkv_phase(np, torch, dev, ops, shapes)
     emit(rwkv)
     recur = breakdown_rwkv_phase(np, torch, dev, rshapes)
@@ -229,6 +266,10 @@ def main() -> int:
         run = {"paged_decode_attention": paged,
                "wkv_step": rwkv}.get(k["name"], serve)
         k["launches"] = run["serial"]["launches"][k["name"]]
+        for key, phase in (("launches_banked", banked),
+                           ("launches_hub", hub)):
+            if k["name"] in phase[key]:
+                k[key] = phase[key][k["name"]]
         if k["name"] in in_step:
             eng = in_step[k["name"]]
             us = next(v for key, v in eng.items()
@@ -303,7 +344,61 @@ def reference_phase(np, torch, dev):
             "new_tokens": 12,
             "paged": paged_reference(np, torch, dev, model, cpu),
             "spec": spec_reference(np, torch, dev, model, cpu, gpu),
+            "bank_hub": bank_hub_reference(np, torch, dev, model),
             "rwkv": rwkv_reference(np, torch, dev)}
+
+
+def bank_hub_reference(np, torch, dev, model):
+    """Four reduced f32 experts (seeded weights) on the card and on the
+    CPU, pre-routed traffic (a sweep, then Zipf(``HUB_ZIPF``) over the
+    four; prompts of 4-40 tokens, 8 new): once as a bank of four
+    (``plan_placement``, a router-less scheduler), once through a hub of
+    2 slots whose experts are staged from host memory (no worker: the
+    same installs and evictions on both devices). Card tokens must equal
+    the CPU's exactly, the hub's counters too."""
+    from repro_torch.core import ExpertRegistry
+    from repro_torch.serve import (ExpertEngine, ExpertHub, Request,
+                                   RoutedServer, Scheduler, SchedulerConfig,
+                                   plan_placement)
+    cpu = [model.init(torch.Generator().manual_seed(SEED + 40 + i),
+                      device="cpu") for i in range(4)]
+    rng = np.random.default_rng(SEED + 17)
+    p = np.arange(1, 5, dtype=np.float64) ** -HUB_ZIPF
+    experts = list(range(4)) + list(rng.choice(4, size=12, p=p / p.sum()))
+    reqs = [Request(uid=u, features=np.zeros(784, np.float32),
+                    prompt=rng.integers(0, model.cfg.vocab_size, size=int(
+                        rng.integers(4, 41))).astype(np.int32),
+                    max_new_tokens=8, expert=int(e))
+            for u, e in enumerate(experts)]
+    out = {}
+    for key, where in (("cpu", "cpu"), ("card", dev)):
+        reg = ExpertRegistry()
+        for i, params in enumerate(cpu):
+            reg.add(f"x{i}", ExpertEngine(
+                model, params if where == "cpu" else _tree(
+                    params, lambda t: t.to(dev)), max_len=64, device=where))
+        sched = Scheduler(None, reg, SchedulerConfig(max_batch=4),
+                          placement=plan_placement(reg))
+        sched.submit(reqs)
+        bank = {r.uid: r.tokens for r in sched.drain()}
+        hub = ExpertHub(model, n_slots=2, max_len=64, device=where)
+        for i, params in enumerate(cpu):
+            hub.add_expert(f"x{i}", params)
+        with RoutedServer(None, hub.build_registry(), max_batch=4, hub=hub,
+                          check_every=1, device=where) as srv:
+            served = {r.uid: r.tokens for r in srv.serve(reqs)}
+        out[key] = (bank, served, {k: hub.stats.as_dict()[k] for k in (
+            "loads", "evictions", "resident_misses")})
+    for i, label in enumerate(("bank", "hub")):
+        if not all(np.array_equal(out["card"][i][u], out["cpu"][i][u])
+                   for u in out["cpu"][i]):
+            raise AssertionError(f"reference: {label} tokens differ between "
+                                 "the card and the CPU")
+    if out["card"][2] != out["cpu"][2] or not out["card"][2]["evictions"]:
+        raise AssertionError(f"reference: hub counters {out}")
+    return {"experts": 4, "requests": len(reqs), "new_tokens": 8,
+            "hub_slots": 2, "tokens_equal_cpu": True,
+            "hub_counters": out["card"][2]}
 
 
 def spec_reference(np, torch, dev, model, cpu, gpu):
@@ -724,7 +819,7 @@ def serve_phase(np, torch, dev, ops):
                             for _, sb in e.core._prefill_shapes) + 16 - 2,
         "n_classes": int(matcher.centroids.shape[1]),
         "max_len": 256, "cfg": cfg, "engine": engines[0],
-        "matcher": matcher, "registry": registry,
+        "matcher": matcher, "registry": registry, "requests": reqs,
     }
     return ({"phase": "serve", "config": cfg.name, "experts": len(names),
              "requests": len(reqs), "max_new_tokens": 16,
@@ -736,7 +831,8 @@ def serve_phase(np, torch, dev, ops):
              "graphs": graph_stats(engines),
              "kernel_shapes": {k: v for k, v in shapes.items()
                                if k not in ("cfg", "engine", "matcher",
-                                            "registry")}}, shapes)
+                                            "registry", "requests")}},
+            shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -902,6 +998,8 @@ def serve_paged_phase(np, torch, dev, ops, shapes):
     shapes["paged"] = {"rows": serial["decode_rows_max"],
                        "live": serial["live_slots_at_max_rows"],
                        "n_pages": n_pages, "page": 8, "n_logical": 32}
+    shapes["paged_traffic"] = traffic
+    shapes["paged_tokens"] = [r.tokens for r in resp_s]
     return {"phase": "serve_paged", "config": cfg.name,
             "experts": len(ring), "requests": len(traffic),
             "max_new_tokens": 16, "kv": "paged", "page": 8, "max_len": 256,
@@ -1142,15 +1240,19 @@ def spec_traffic(np, rng, n):
 
 def _record_waves(core, out):
     """Wrap ``core.admit_wave`` on the instance: ``out`` maps each
-    admitted uid to its wave (prompts, batch bucket, length bucket) and
-    its row in it."""
+    admitted uid to its wave — the model, its expert's params, the cache
+    capacity, the prompts of its expert's group, the wave's batch and
+    length buckets — and its row in the group."""
     admit = core.admit_wave
 
     def wrapped(groups, **kw):
-        (uids, prompts, _), = groups.values()
-        Bb, Sb = core.pad_shape(len(uids), max(len(p) for p in prompts))
-        for i, u in enumerate(uids):
-            out[u] = (core, list(prompts), Bb, Sb, i)
+        rows = [g for g in groups.values() if g[0]]
+        Bb, Sb = core.pad_shape(max(len(g[0]) for g in rows),
+                                max(len(p) for g in rows for p in g[1]))
+        for local, (uids, prompts, _) in groups.items():
+            for i, u in enumerate(uids):
+                out[u] = (core.model, core.params[local], core.max_len,
+                          list(prompts), Bb, Sb, i)
         return admit(groups, **kw)
     core.admit_wave = wrapped
 
@@ -1164,15 +1266,14 @@ def near_tie(np, torch, dev, wave, want, d):
     gave the served tokens up to and including ``d``. Returns (gap, one
     bf16 ulp of the top logit, top-2 ids, exact)."""
     import math
-    core, prompts, Bb, Sb, row = wave
-    model, params = core.model, core.params[0]
+    model, params, max_len, prompts, Bb, Sb, row = wave
     toks = np.zeros((Bb, Sb), np.int32)
     for i, p in enumerate(prompts):
         p = np.asarray(p, np.int32)[-Sb:]
         toks[i, :len(p)] = p
     logits, cache = model.prefill(
         params, {"tokens": torch.from_numpy(toks).to(dev)},
-        capacity=core.max_len)
+        capacity=max_len)
     got = [int(logits[row].argmax())]
     for i in range(d):
         tok = torch.zeros((Bb, 1), dtype=torch.int32, device=dev)
@@ -1184,6 +1285,31 @@ def near_tie(np, torch, dev, wave, want, d):
     ulp = 2.0 ** (math.floor(math.log2(abs(v[0]))) - 7)
     return (v[0] - v[1], ulp, top.indices.tolist(),
             got == [int(t) for t in want[:d + 1]])
+
+
+def tie_rows(np, torch, dev, got, ref, waves):
+    """Hold responses ``got`` row by row to a reference run's ``ref``,
+    whose waves ``waves`` recorded (``_record_waves``): (rows equal,
+    differing rows, the differing rows that are not a near tie). A near
+    tie: at the first differing position the two tokens are the
+    reference run's top 2 (its wave replayed exactly), at most
+    ``TIE_ULPS`` bf16 ulps apart."""
+    ties, same = [], 0
+    for r, p in zip(got, ref):
+        if np.array_equal(r.tokens, p.tokens):
+            same += 1
+            continue
+        d = int(np.flatnonzero(r.tokens != p.tokens)[0])
+        gap, ulp, top2, exact = near_tie(np, torch, dev, waves[p.uid],
+                                         p.tokens, d)
+        ties.append({"uid": r.uid, "position": d, "ref": int(p.tokens[d]),
+                     "got": int(r.tokens[d]), "ref_top2": top2,
+                     "top2_gap": gap, "bf16_ulp": ulp,
+                     "replay_exact": exact})
+    bad = [t for t in ties if not t["replay_exact"]
+           or {t["ref"], t["got"]} != set(t["ref_top2"])
+           or t["top2_gap"] > TIE_ULPS * t["bf16_ulp"]]
+    return same, ties, bad
 
 
 def serve_spec_phase(np, torch, dev, ops, shapes, plain_engine):
@@ -1323,23 +1449,8 @@ def serve_spec_phase(np, torch, dev, ops, shapes, plain_engine):
                                            f"plain {executor}", spec=False)
     for c in cores:
         del c.admit_wave
-    ties, same = [], 0
-    for r, p in zip(spec_resps, plain_resps):
-        if np.array_equal(r.tokens, p.tokens):
-            same += 1
-            continue
-        d = int(np.flatnonzero(r.tokens != p.tokens)[0])
-        gap, ulp, top2, exact = near_tie(np, torch, dev, waves[r.uid],
-                                         p.tokens, d)
-        ties.append({"uid": r.uid, "position": d, "plain": int(p.tokens[d]),
-                     "spec": int(r.tokens[d]), "plain_top2": top2,
-                     "top2_gap": gap, "bf16_ulp": ulp,
-                     "replay_exact": exact})
-    # a near tie: the two tokens are the plain path's top 2 (replayed
-    # exactly), at most TIE_ULPS bf16 ulps apart
-    bad = [t for t in ties if not t["replay_exact"]
-           or {t["plain"], t["spec"]} != set(t["plain_top2"])
-           or t["top2_gap"] > TIE_ULPS * t["bf16_ulp"]]
+    same, ties, bad = tie_rows(np, torch, dev, spec_resps, plain_resps,
+                               waves)
 
     # one paged spec run (page 8, no chunking: the gate lets every wave in)
     preg = fleet(True, kv_layout="paged", page_size=8)
@@ -1416,6 +1527,486 @@ def serve_spec_phase(np, torch, dev, ops, shapes, plain_engine):
 
 
 # ---------------------------------------------------------------------------
+# serve_banked: the serve phase's six experts as one bank
+# ---------------------------------------------------------------------------
+
+
+def bank_fleet(dev, model, ring, capture=True, **kw):
+    """Six engines on the serve phase's weight tensors, placed by
+    ``plan_placement``: (registry, plan) holding one bank of all six."""
+    from repro_torch.core import ExpertRegistry
+    from repro_torch.serve import ExpertEngine, plan_placement
+    reg = ExpertRegistry()
+    for e in range(len(ring)):
+        reg.add(ring[e].name, ExpertEngine(
+            model, ring[e].backend.params, max_len=256, device=dev,
+            capture_decode=capture, **kw))
+    plan = plan_placement(reg)
+    if [s.experts for s in plan.shards if s.banked] != \
+            [tuple(range(len(ring)))]:
+        raise AssertionError(f"plan_placement: {plan.describe()}")
+    return reg, plan
+
+
+def bank_tick(np, torch, bank, B, Sb, n):
+    """The bank's own decode tick of one resident wave (B rows of Sb
+    prompt tokens, all in member 0: every member computes anyway),
+    host-synchronised: median wall ms of ``n`` ticks after the bucket's
+    step is captured."""
+    rng = np.random.default_rng(SEED + 2)
+    prompts = list(rng.integers(0, bank.model.cfg.vocab_size, size=(B, Sb))
+                   .astype(np.int32))
+    bank.admit({0: (list(range(B)), prompts, [n + 8] * B)}, defer=True)
+    for _ in range(2):               # eager first step; capture + replay
+        bank.tick(defer=True)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        bank.tick(defer=True)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    while bank.n_active:
+        bank.tick(defer=True)
+        bank.harvest()
+    bank.poll()
+    return {"rows": B, "prompt_len": Sb, "members": bank.n_experts,
+            "graph_wall_ms_per_step": statistics.median(walls),
+            "graph_wall_ms_runs": [min(walls), max(walls)]}
+
+
+def timed_serve(torch, ops, server, reqs):
+    """Serve ``reqs`` with every launch counter reset just before and
+    read just after: (responses, seconds, launches, route chunks with
+    misses)."""
+    chunks = _record_route(server.router, [])
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    resps = server.serve(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ops.launches()
+    _unrecord_route(server.router)
+    return resps, dt, launches, chunks
+
+
+def check_responses(label, resps, reqs, vocab):
+    if [r.uid for r in resps] != [q.uid for q in reqs] or not all(
+            r.tokens.shape == (q.max_new_tokens,)
+            and ((r.tokens >= 0) & (r.tokens < vocab)).all()
+            for r, q in zip(resps, reqs)):
+        raise AssertionError(f"{label}: bad responses {resps}")
+
+
+def check_decode_launches(label, launches, kernel, per_step, steps):
+    """``kernel`` launched ``per_step`` times a decode step (E members x
+    layers: a bank computes every member, rows or not) and the other
+    decode kernels never."""
+    others = {"decode_attention", "paged_decode_attention",
+              "wkv_step"} - {kernel}
+    if launches[kernel] != per_step * steps or any(launches[k]
+                                                   for k in others):
+        raise AssertionError(f"{label}: {launches} for {steps} decode steps "
+                             f"of {per_step} {kernel} launches")
+
+
+def serve_banked_phase(np, torch, dev, ops, shapes):
+    """The serve phase's six experts placed as one bank (``plan_placement``
+    over six ring ``llama3_2_1b`` engines on the serve phase's weight
+    tensors: one ``BankedEngine`` of E = 6, full width, bf16, ``max_len``
+    256) serving the serve phase's 24 routed requests: graph serial,
+    graph overlapped, eager serial, eager overlapped. Every run's tokens
+    equal the first's and its host blocks the other capture mode's; each
+    row equals the per-engine fleet's (a serial run whose waves are
+    recorded) or differs first at a reported near tie; ``decode_attention``
+    launches E x n_layers a bank step; routes equal the CPU's, B1/B2 once
+    per route chunk. Then one paged bank run (page 8, ``chunk_len`` 64)
+    on the serve_paged phase's cohort traffic: B4 E x n_layers a step,
+    never B3, its pools' books balanced. Last the bank's own tick."""
+    from repro_torch.serve import Request, RoutedServer
+
+    cfg, matcher, ring = shapes["cfg"], shapes["matcher"], shapes["registry"]
+    model = shapes["engine"].model
+    reqs = shapes["requests"]
+    E, L = len(ring), cfg.n_layers
+    want_routes = cpu_routes(np, torch, matcher, reqs)
+
+    # the reference run: the per-engine graph fleet, serial, its waves
+    # recorded for the near-tie replays
+    waves = {}
+    cores = [ring[e].backend.core for e in range(E)]
+    for c in cores:
+        _record_waves(c, waves)
+    ref = RoutedServer(matcher, ring, executor="serial",
+                       device=dev).serve(reqs)
+    for c in cores:
+        del c.admit_wave
+    fleet_graphs = graph_stats([ring[e].backend for e in range(E)])
+
+    fleets = {c: bank_fleet(dev, model, ring, c) for c in (True, False)}
+    warm_graphs(RoutedServer, matcher, fleets[True][0], reqs, dev,
+                placement=fleets[True][1])
+    runs, tokens = {True: {}, False: {}}, {}
+    for capture, executor in RUNS:
+        label = f"serve_banked {'graph' if capture else 'eager'} {executor}"
+        reg, plan = fleets[capture]
+        bank = plan.shards[0].bank
+        server = RoutedServer(matcher, reg, placement=plan,
+                              executor=executor, device=dev)
+        before = bank.stats.as_dict()
+        resps, dt, launches, chunks = timed_serve(torch, ops, server, reqs)
+        chunks = route_chunks(label, chunks, launches)
+        check_routes(label, want_routes, resps)
+        check_responses(label, resps, reqs, cfg.padded_vocab)
+        if any(r.shard != 0 for r in resps):
+            raise AssertionError(
+                f"{label}: shard ids {[r.shard for r in resps]}")
+        delta = engine_delta([bank], [before])
+        check_decode_launches(label, launches, "decode_attention", E * L,
+                              delta["decode_steps"])
+        tokens[label] = [r.tokens for r in resps]
+        steps = server.scheduler._steps
+        runs[capture][executor] = {
+            "seconds": dt, "req_per_s": len(resps) / dt,
+            "generated_tok_per_s": sum(len(r.tokens) for r in resps) / dt,
+            **delta, "launches": launches, "route_chunks": chunks,
+            "scheduler_steps": steps,
+            "bank_steps_per_scheduler_step": delta["decode_steps"] / steps}
+        if capture and executor == "serial":
+            bank_resps = resps
+    same_tokens("serve_banked", tokens, lambda a, b: np.array_equal(a, b))
+    for executor in ("serial", "overlapped"):
+        if runs[True][executor]["host_blocks"] != \
+                runs[False][executor]["host_blocks"]:
+            raise AssertionError(f"serve_banked {executor}: host blocks "
+                                 f"graph {runs[True][executor]} eager "
+                                 f"{runs[False][executor]}")
+    bank = fleets[True][1].shards[0].bank
+    graphs = graph_stats([bank])
+    if graphs["captured"] != graphs["decode_compiles"] or \
+            graphs["decode_compiles"] > len(bank.batch_buckets):
+        raise AssertionError(f"serve_banked graphs: {graphs}")
+    same, ties, bad = tie_rows(np, torch, dev, bank_resps, ref, waves)
+    del fleets[False]
+
+    # one paged bank run on the serve_paged phase's cohort traffic
+    traffic = shapes["paged_traffic"]
+    preg, pplan = bank_fleet(dev, model, ring, kv_layout="paged",
+                             page_size=8, chunk_len=64)
+    pbank = pplan.shards[0].bank
+    warm_graphs(RoutedServer, matcher, preg, [
+        Request(uid=u, features=f, prompt=(p + 1) % cfg.vocab_size,
+                max_new_tokens=16) for u, (f, p, _) in enumerate(traffic)],
+        dev, placement=pplan, prefill_tokens_per_step=64)
+    preqs = [Request(uid=u, features=f, prompt=p, max_new_tokens=16)
+             for u, (f, p, _) in enumerate(traffic)]
+    server = RoutedServer(matcher, preg, placement=pplan,
+                          executor="overlapped", prefill_tokens_per_step=64,
+                          device=dev)
+    before = pbank.stats.as_dict()
+    presps, pdt, plaunches, pchunks = timed_serve(torch, ops, server, preqs)
+    route_chunks("serve_banked paged", pchunks, plaunches)
+    check_responses("serve_banked paged", presps, preqs, cfg.padded_vocab)
+    pdelta = engine_delta([pbank], [before], [
+        k for k in dict.fromkeys(DELTAS + PREFIX_COUNTERS)
+        if k != "suffix_compiles"])
+    check_decode_launches("serve_banked paged", plaunches,
+                          "paged_decode_attention", E * L,
+                          pdelta["decode_steps"])
+    pool = pbank.core.pool
+    pool.check()
+    for e in range(E):
+        cached = sum(1 for k in pbank.core.prefix_cache._lru
+                     if k[0] == "pg" and k[1] == e)
+        if pool.used_count(e) != cached:
+            raise AssertionError(f"serve_banked paged: member {e} holds "
+                                 f"{pool.used_count(e)} pages, the prefix "
+                                 f"cache {cached}")
+    paged = {"seconds": pdt, "req_per_s": len(presps) / pdt, **pdelta,
+             "launches": plaunches, "pages_in_use_after": sum(
+                 pool.used_count(e) for e in range(E)),
+             "equal_share_per_engine_paged": sum(
+                 bool(np.array_equal(a.tokens, b))
+                 for a, b in zip(presps, shapes["paged_tokens"]))
+             / len(presps)}
+    del preg, pplan, pbank, server
+
+    tick = bank_tick(np, torch, bank, shapes["decode_rows"], 64, 20)
+    out = {"phase": "serve_banked", "config": cfg.name, "experts": E,
+           "banks": 1, "requests": len(reqs), "max_new_tokens": 16,
+           "kv": "ring", "max_len": 256, "tokens_equal": True,
+           "tokens_equal_graph_eager": True, "routes_equal_cpu": True,
+           "serial": runs[True]["serial"],
+           "overlapped": runs[True]["overlapped"], "eager": runs[False],
+           "graphs": graphs, "per_engine_graphs": fleet_graphs,
+           "rows_equal_per_engine": same, "rows_near_tie": ties,
+           "near_tie_gaps_ulps": sorted(t["top2_gap"] / t["bf16_ulp"]
+                                        for t in ties),
+           "paged": paged, "bank_tick": tick,
+           "launches_banked": {
+               **{k: runs[True]["serial"]["launches"][k]
+                  for k in RING_PATH},
+               "paged_decode_attention": plaunches[
+                   "paged_decode_attention"]}}
+    if bad:
+        print(json.dumps(out), file=sys.stderr, flush=True)
+        raise AssertionError(f"serve_banked: rows differ from the per-engine "
+                             f"fleet's other than at a near tie: {bad}")
+    return out, fleets[True]
+
+
+# ---------------------------------------------------------------------------
+# serve_hub: a catalog of six behind two device slots
+# ---------------------------------------------------------------------------
+
+#: the hub phase's slots, and the Zipf exponent of its traffic over expert
+#: rank after a sweep of the catalog
+HUB_SLOTS = 2
+HUB_ZIPF = 1.1
+#: PCIe Gen5 x16, one direction (the H100 SXM's host link), theoretical
+HOST_LINK_BYTES_PER_S = 64e9
+
+
+def hub_traffic(np, torch, rng, matcher, vocab, n):
+    """``n`` requests over the matcher's experts: a catalog sweep (each
+    expert once), then Zipf(``HUB_ZIPF``) over expert rank; each
+    fingerprint chosen by its CPU route (a margin of at least 1e-3; an
+    expert's fingerprints are reused, as repeat clients send them, when
+    it wins fewer than its requests); prompts of 8-64 tokens, 16 new."""
+    from repro_torch.serve import Request
+    K = matcher.n_experts
+    cands, best, margin = routed_candidates(np, torch, cpu_matcher(matcher),
+                                            rng)
+    pools = [np.flatnonzero((best == e) & (margin >= 1e-3)) for e in range(K)]
+    if not all(len(p) for p in pools):
+        missing = [e for e in range(K) if not len(pools[e])]
+        raise AssertionError(f"serve_hub: no fingerprint of 4096 routes to "
+                             f"experts {missing}")
+    p = np.arange(1, K + 1, dtype=np.float64) ** -HUB_ZIPF
+    experts = list(range(K)) + list(rng.choice(K, size=n - K, p=p / p.sum()))
+    used = [0] * K
+    out = []
+    for u, e in enumerate(experts):
+        j = pools[e][used[e] % len(pools[e])]
+        used[e] += 1
+        out.append(Request(uid=u, features=cands[j], prompt=rng.integers(
+            0, vocab, size=int(rng.integers(8, 65))).astype(np.int32),
+            max_new_tokens=16))
+    return out
+
+
+def _meminfo_gb(key):
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return None
+
+
+def host_link_gbps(torch):
+    """One 1 GiB pinned host-to-device copy, timed with CUDA events (the
+    median of three): the host link rate this machine gives."""
+    src = torch.empty(1 << 28, dtype=torch.float32).pin_memory()
+    dst = torch.empty_like(src, device="cuda")
+    times = []
+    for _ in range(3):
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        dst.copy_(src, non_blocking=True)
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return (1 << 30) / (statistics.median(times) / 1e3) / 1e9
+
+
+def serve_hub_phase(np, torch, dev, ops, shapes, fleet, ticks):
+    """An ``ExpertHub`` of ``HUB_SLOTS`` device slots (``llama3_2_1b``
+    full width, bf16, ring, ``max_len`` 256) whose catalog is the serve
+    phase's six experts, each saved ``cold`` into a store under a
+    temporary directory (fewer, at least two, where disk is short; the
+    rest staged from host memory; removed at the end), fronted by the
+    serve phase's matcher (its router's hits bound as the popularity).
+    ``hub.warmup`` captures every decode bucket first. Traffic: 24
+    requests (``hub_traffic``): a catalog sweep, then Zipf over expert
+    rank. Served serial, then overlapped, with the invariant checks every
+    step. Held: every expert served, evictions > 0 and loads >= 6,
+    ``hub.check()`` and pin conservation, no capture after the warmup,
+    routes equal the CPU's and B1/B2 once per route chunk,
+    ``decode_attention`` ``HUB_SLOTS`` x n_layers a bank step, and every
+    row equal to serve_banked's bank's on the same requests or differing
+    first at a reported near tie."""
+    import resource
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import expert_nbytes
+    from repro_torch.serve import ExpertHub, RoutedServer
+
+    cfg, matcher, ring = shapes["cfg"], shapes["matcher"], shapes["registry"]
+    model = shapes["engine"].model
+    E, L = len(ring), cfg.n_layers
+    names = [ring[e].name for e in range(E)]
+    reqs = hub_traffic(np, torch, np.random.default_rng(SEED + 13), matcher,
+                       cfg.vocab_size, 24)
+    want_routes = cpu_routes(np, torch, matcher, reqs)
+
+    # the reference run: serve_banked's bank on the same requests
+    reg, plan = fleet
+    waves = {}
+    _record_waves(plan.shards[0].bank.core, waves)
+    ref = RoutedServer(matcher, reg, placement=plan, executor="serial",
+                       device=dev).serve(reqs)
+    del plan.shards[0].bank.core.admit_wave
+
+    expert_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(ring[0].backend.params))
+    store = tempfile.mkdtemp(prefix="hub_store_")
+    disk_free = shutil.disk_usage(store).free
+    n_cold = min(E, int(disk_free // (1.1 * expert_bytes)))
+    if n_cold < 2:
+        raise AssertionError(f"serve_hub: {disk_free / 1e9:.1f} GB free "
+                             "holds fewer than two experts")
+    host = {"mem_available_gb_before": _meminfo_gb("MemAvailable"),
+            "maxrss_gb_before": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dev0 = torch.cuda.memory_allocated()
+    try:
+        hub = ExpertHub(model, n_slots=HUB_SLOTS, max_len=256, store=store,
+                        device=dev)
+        t0 = time.perf_counter()
+        for e in range(E):
+            hub.add_expert(names[e], ring[e].backend.params, cold=e < n_cold)
+        write_s = time.perf_counter() - t0
+        store_bytes = sum(expert_nbytes(store, names[e])
+                          for e in range(n_cold))
+        t0 = time.perf_counter()
+        hub.warmup(max_batch=16)
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        captured = hub.bank.stats.decode_captured
+        if captured != len(hub.bank.batch_buckets):
+            raise AssertionError(f"serve_hub warmup captured {captured}")
+        registry = hub.build_registry()
+        runs, resps_by = {}, {}
+        for executor in ("serial", "overlapped"):
+            label = f"serve_hub {executor}"
+            server = RoutedServer(matcher, registry, hub=hub,
+                                  executor=executor, check_every=1,
+                                  device=dev)
+            sched = server.scheduler
+            service, service_s = sched._service_hub, []
+
+            def timed_service():
+                t = time.perf_counter()
+                service()
+                service_s.append(time.perf_counter() - t)
+            sched._service_hub = timed_service
+            stats0 = dict(hub.stats.as_dict())
+            before = hub.bank.stats.as_dict()
+            resps, dt, launches, chunks = timed_serve(torch, ops, server,
+                                                      reqs)
+            del sched._service_hub
+            chunks = route_chunks(label, chunks, launches)
+            check_routes(label, want_routes, resps)
+            check_responses(label, resps, reqs, cfg.padded_vocab)
+            delta = engine_delta([hub.bank], [before])
+            check_decode_launches(label, launches, "decode_attention",
+                                  HUB_SLOTS * L, delta["decode_steps"])
+            served = sorted({r.expert for r in resps})
+            if served != sorted(names):
+                raise AssertionError(f"{label}: served {served}")
+            hub.check()
+            if hub.total_pins():
+                raise AssertionError(f"{label}: {hub.total_pins()} pins left")
+            if hub.bank.stats.decode_captured != captured:
+                raise AssertionError(f"{label}: a capture after the warmup")
+            resps_by[executor] = resps
+            st = hub.stats.as_dict()
+            runs[executor] = {
+                "seconds": dt, "req_per_s": len(resps) / dt,
+                "generated_tok_per_s": sum(len(r.tokens)
+                                           for r in resps) / dt,
+                **delta, "launches": launches, "route_chunks": chunks,
+                "scheduler_steps": sched._steps,
+                "service_hub_s": sum(service_s),
+                "rest_of_steps_s": dt - sum(service_s),
+                "resident_stalls": sched.stats.resident_stalls,
+                "hub_delta": {k: st[k] - stats0[k] for k in
+                              ("loads", "evictions", "resident_misses",
+                               "stage_count", "commit_count")}}
+        st = hub.stats
+        if not (st.evictions > 0 and st.loads >= E):
+            raise AssertionError(f"serve_hub: {st}")
+        # one install timed to completion: a staged, non-resident expert
+        # into an idle hub's slot (an eviction, pinning, the copy)
+        e = next(i for i, c in enumerate(hub.catalog)
+                 if c.state == "staged")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hub.want(e)
+        hub.service()
+        torch.cuda.synchronize()
+        commit_sync_s = time.perf_counter() - t0
+        if hub.slot_of(e) is None:
+            raise AssertionError("serve_hub: the timed install did not land")
+        link = host_link_gbps(torch)
+        snap = hub.metrics_snapshot()
+        tick = bank_tick(np, torch, hub.bank, shapes["decode_rows"], 64, 20)
+        device_peak_gb = (torch.cuda.max_memory_allocated() - dev0) / 1e9
+        host["maxrss_gb_after"] = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+        host["mem_available_gb_after"] = _meminfo_gb("MemAvailable")
+        hub.close()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    ties = {}
+    bad = []
+    for executor, resps in resps_by.items():
+        same, t, b = tie_rows(np, torch, dev, resps, ref, waves)
+        ties[executor] = {"rows_equal_bank": same, "rows_near_tie": t}
+        bad += b
+    stats = st.as_dict()
+    out = {"phase": "serve_hub", "config": cfg.name, "catalog": E,
+           "slots": HUB_SLOTS, "kv": "ring", "max_len": 256,
+           "requests": len(reqs), "max_new_tokens": 16, "prompt_len": [8, 64],
+           "traffic": {"sweep": E, "zipf": HUB_ZIPF,
+                       "per_expert": {n: sum(r.expert == n
+                                             for r in resps_by["serial"])
+                                      for n in names}},
+           "cold_experts": n_cold, "host_staged_experts": E - n_cold,
+           "disk_free_gb": disk_free / 1e9, "expert_gb": expert_bytes / 1e9,
+           "store_gb": store_bytes / 1e9, "store_write_s": write_s,
+           "warmup_s": warmup_s, "decode_captured_after_warmup": captured,
+           "hub_stats": stats,
+           "per_expert": {n: {k: v[k] for k in ("stage_ms", "commit_ms",
+                                                "misses", "hits")}
+                          for n, v in snap["experts"].items()},
+           "commit_enqueue_gb_per_s": stats["commit_bytes"]
+           / max(st.commit_ms, 1e-9) / 1e6,
+           "commit_sync_ms": commit_sync_s * 1e3,
+           "commit_sync_gb_per_s": expert_bytes / commit_sync_s / 1e9,
+           "host_link_gb_per_s_measured": link,
+           "host_link_gb_per_s_theoretical": HOST_LINK_BYTES_PER_S / 1e9,
+           "host_memory": host, "device_peak_gb_above_phase_start":
+               device_peak_gb,
+           "serial": runs["serial"], "overlapped": runs["overlapped"],
+           "vs_bank": ties,
+           "tick": {"hub_bank": tick, "bank6": ticks["bank"],
+                    "single_engine_graph_wall_ms_per_step":
+                        ticks["single"]},
+           "launches_hub": {k: runs["serial"]["launches"][k]
+                            for k in RING_PATH + ("paged_decode_attention",)}}
+    if bad:
+        print(json.dumps(out), file=sys.stderr, flush=True)
+        raise AssertionError(f"serve_hub: rows differ from the bank's other "
+                             f"than at a near tie: {bad}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # serve_rwkv: RWKV6 experts beside dense ones behind one router
 # ---------------------------------------------------------------------------
 
@@ -1423,6 +2014,19 @@ def serve_spec_phase(np, torch, dev, ops, shapes, plain_engine):
 #: the requests each gets out of 24
 RWKV_FLEET = (("rwkv_a", "rwkv", 7), ("rwkv_b", "rwkv", 7),
               ("llama_a", "dense", 5), ("llama_b", "dense", 5))
+
+
+def routed_candidates(np, torch, m_cpu, rng, n=4096):
+    """``n`` candidate fingerprints (uniform draws raised to powers in
+    [0.2, 5], so the bank's experts all win some), each one's CPU route
+    through ``m_cpu`` and its relative margin over the runner-up."""
+    cands = (rng.random((n, 784), dtype=np.float32)
+             ** rng.uniform(0.2, 5.0, (n, 1)).astype(np.float32))
+    sc = torch.sort(m_cpu.coarse_scores(torch.from_numpy(cands)), dim=-1)
+    best = m_cpu.assign_coarse(torch.from_numpy(cands)).numpy()
+    margin = ((sc.values[:, 1] - sc.values[:, 0])
+              / sc.values[:, 0].abs().clamp_min(1e-30)).numpy()
+    return cands, best, margin
 
 
 def serve_rwkv_phase(np, torch, dev, ops, shapes):
@@ -1452,12 +2056,7 @@ def serve_rwkv_phase(np, torch, dev, ops, shapes):
     m_cpu = build_matcher(aes, names, cent_data, device="cpu")
     matcher = build_matcher(aes, names, cent_data,
                             MatcherConfig(use_kernel=True), device=dev)
-    cands = (rng.random((4096, 784), dtype=np.float32)
-             ** rng.uniform(0.2, 5.0, (4096, 1)).astype(np.float32))
-    sc = torch.sort(m_cpu.coarse_scores(torch.from_numpy(cands)), dim=-1)
-    best = m_cpu.assign_coarse(torch.from_numpy(cands)).numpy()
-    margin = ((sc.values[:, 1] - sc.values[:, 0])
-              / sc.values[:, 0].abs().clamp_min(1e-30)).numpy()
+    cands, best, margin = routed_candidates(np, torch, m_cpu, rng)
     picks = []
     for e, (name, family, n) in enumerate(RWKV_FLEET):
         idx = np.flatnonzero((best == e) & (margin >= 1e-3))

@@ -1,7 +1,7 @@
 """Uniform model interface used by the serving and training paths.
 
 Every family implements:
-  init(generator, device=None) -> params
+  init(generator, device=None) -> params   (device="meta": shapes only)
   prefill(params, batch, capacity=None) -> (last_logits (B, V), cache)
   decode(params, cache, batch) -> (logits (B, V), cache)
   init_cache(batch_size, capacity, device) -> zeroed cache
@@ -31,6 +31,11 @@ class BaseModel:
 
     def init(self, generator, device=None):
         raise NotImplementedError
+
+    def param_shapes(self):
+        """The params tree on the ``meta`` device: every leaf's shape and
+        dtype, with no storage allocated and nothing drawn."""
+        return self.init(None, device="meta")
 
     def prefill(self, params, batch, capacity=None):
         raise NotImplementedError

@@ -14,6 +14,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
@@ -142,20 +144,46 @@ class ArchConfig:
 # ---------------------------------------------------------------------------
 
 
+class ShapesOnly:
+    """Stands in for the generator of a family's ``init`` asked for
+    ``device="meta"``: every leaf comes out with its shape and dtype, no
+    storage, and nothing is drawn (``BaseModel.param_shapes``)."""
+    device = torch.device("meta")
+
+
+def init_device(generator, device):
+    """(device, generator) for a family's ``init``. ``device="meta"``
+    builds shapes only and ignores ``generator``; otherwise the params go
+    to ``cuda`` unless ``device="cpu"``, drawn from ``generator``, a
+    ``torch.Generator`` on that device or an int seed for one."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta"), ShapesOnly()
+    dev = resolve_device(device)
+    if isinstance(generator, int):
+        generator = torch.Generator(device=dev).manual_seed(generator)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, params "
+                         f"asked for on {dev}")
+    return dev, generator
+
+
+def _randn(gen, shape: Sequence[int]) -> torch.Tensor:
+    return torch.randn(tuple(shape), device=gen.device, generator=(
+        None if isinstance(gen, ShapesOnly) else gen))
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
                in_axis: int = -2) -> torch.Tensor:
     """LeCun-normal style init on the fan-in axis (drawn in f32, then
     cast, as the reference does)."""
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
     std = 1.0 / np.sqrt(fan_in)
-    x = torch.randn(tuple(shape), generator=gen, device=gen.device)
-    return (x * std).to(dtype)
+    return (_randn(gen, shape) * std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int], dtype
                ) -> torch.Tensor:
-    x = torch.randn(tuple(shape), generator=gen, device=gen.device)
-    return (x * 0.02).to(dtype)
+    return (_randn(gen, shape) * 0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

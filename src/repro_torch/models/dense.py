@@ -39,7 +39,6 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..device import resolve_device
 from ..kernels.decode_attention import decode_attention
 from ..kernels.paged_decode_attention import paged_decode_attention
 from .api import BaseModel, register_family
@@ -47,7 +46,7 @@ from .attention import (attention, cache_prefill, init_kv_cache,
                         paged_append, paged_append_rows, paged_gather,
                         paged_scatter_pages, suffix_attend)
 from .common import (ArchConfig, apply_rope, dense_init, dt, embed_init,
-                     rmsnorm, softmax_xent)
+                     init_device, rmsnorm, softmax_xent)
 
 
 def _init_layers(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict:
@@ -174,14 +173,9 @@ class DecoderLM(BaseModel):
     def init(self, generator, device=None):
         """Params from ``generator`` (a ``torch.Generator`` on the target
         device, or an int seed for one). Runs on ``cuda`` unless
-        ``device="cpu"``."""
+        ``device="cpu"``; ``device="meta"`` gives shapes only."""
         cfg = self.cfg
-        dev = resolve_device(device)
-        if isinstance(generator, int):
-            generator = torch.Generator(device=dev).manual_seed(generator)
-        if generator.device.type != dev.type:
-            raise ValueError(f"generator on {generator.device}, params "
-                             f"asked for on {dev}")
+        dev, generator = init_device(generator, device)
         dtype = dt(cfg.param_dtype)
         params = {
             "embed": embed_init(generator, (cfg.padded_vocab, cfg.d_model),

@@ -26,11 +26,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..device import resolve_device
 from ..kernels.wkv_step import wkv_step, wkv_step_plain
 from .api import BaseModel, register_family
-from .common import (ArchConfig, dense_init, dt, embed_init, groupnorm_heads,
-                     rmsnorm, softmax_xent)
+from .common import (ArchConfig, dense_init, dt, embed_init,
+                     groupnorm_heads, init_device, rmsnorm, softmax_xent)
 
 N_MIX = 5  # w, k, v, r, g ddlerp branches
 
@@ -228,14 +227,9 @@ class RWKV6(BaseModel):
     def init(self, generator, device=None):
         """Params from ``generator`` (a ``torch.Generator`` on the target
         device, or an int seed for one). Runs on ``cuda`` unless
-        ``device="cpu"``."""
+        ``device="cpu"``; ``device="meta"`` gives shapes only."""
         cfg = self.cfg
-        dev = resolve_device(device)
-        if isinstance(generator, int):
-            generator = torch.Generator(device=dev).manual_seed(generator)
-        if generator.device.type != dev.type:
-            raise ValueError(f"generator on {generator.device}, params "
-                             f"asked for on {dev}")
+        dev, generator = init_device(generator, device)
         dtype = dt(cfg.param_dtype)
         return {
             "embed": embed_init(generator, (cfg.padded_vocab, cfg.d_model),

@@ -1,5 +1,6 @@
 """Serving subsystem: router -> scheduler -> expert engines (ring or
-paged KV layout, one engine per expert).
+paged KV layout; one engine per expert, banks of homogeneous experts, or
+an expert hub's slot bank over a larger catalog).
 
   * ``Router`` — ExpertMatcher scoring through the routing kernels, with
     bounded row buckets and a client-fingerprint LRU.
@@ -13,6 +14,10 @@ paged KV layout, one engine per expert).
   * ``DraftModel`` and its three drafts (``mlp``, ``table``,
     ``always-wrong``) — the proposers of speculative decoding
     (``ExpertEngine(speculate_k=k, draft=...)``).
+  * ``plan_placement`` / ``BankedEngine`` — homogeneous experts grouped
+    into one engine core, one captured step per batch bucket for all.
+  * ``ExpertHub`` — a catalog of experts in a checkpoint store, staged by
+    a worker thread and installed in place into a fixed bank of slots.
   * ``DispatchExecutor`` (``serial`` / ``overlapped``) — whether a step
     blocks per decode tick or enqueues all shards' work first.
 """
@@ -22,14 +27,19 @@ from .core import (DispatchExecutor, EngineCore, EngineStats,
 from .draft import (AlwaysWrongDraft, BigramTableDraft, DraftModel,
                     MLPBaselineDraft, build_draft)
 from .engine import ExpertEngine
+from .hub import CatalogEntry, ExpertHub, HubMember, HubStats, NotResident
 from .kvcache import PagePool, PagePoolExhausted, PrefixCache, hash_chain
+from .placement import (BankedEngine, BankMember, PlacementPlan, Shard,
+                        plan_placement)
 from .router import PrefixLRU, Router, RouteResult
 from .scheduler import (Request, Response, RoutedServer, Scheduler,
-                        SchedulerConfig, SchedulerStats, Shard)
+                        SchedulerConfig, SchedulerStats)
 
 __all__ = [
     "AlwaysWrongDraft", "BigramTableDraft", "DraftModel", "MLPBaselineDraft",
     "build_draft", "DispatchExecutor", "EngineCore", "EngineStats", "ExpertEngine",
+    "BankedEngine", "BankMember", "CatalogEntry", "ExpertHub", "HubMember",
+    "HubStats", "NotResident", "PlacementPlan", "plan_placement",
     "OverlappedExecutor", "PagePool", "PagePoolExhausted", "PrefixCache",
     "PrefixLRU", "Request", "Response",
     "RouteResult", "RoutedServer", "Router", "Scheduler",

@@ -1425,7 +1425,8 @@ class EngineCore:
 
 
 class DispatchExecutor:
-    """How one scheduler step drives its shards: issue every shard's
+    """How one scheduler step drives its shards: run the expert hub's
+    lifecycle round, issue every shard's
     prefill, then pending prefill chunks under the step's token budget,
     then every shard's decode tick, then harvest. ``defer``
     decides whether each dispatch blocks on its own device-to-host copy
@@ -1438,6 +1439,9 @@ class DispatchExecutor:
     defer = False
 
     def run_step(self, sched) -> None:
+        # the expert hub's round first: slot installs are enqueued ahead
+        # of this step's prefills and decode ticks (a no-op without a hub)
+        sched._service_hub()
         sched._admit_batches(defer=self.defer)
         # pending chunks of partially prefilled waves go out here, bounded
         # per step by SchedulerConfig.prefill_tokens_per_step, so the

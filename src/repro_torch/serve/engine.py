@@ -28,10 +28,58 @@ from ..core.registry import ExpertSpec
 from ..models.api import BaseModel
 from .core import EngineCore, EngineStats, bucket_for, make_buckets
 
-__all__ = ["ExpertEngine", "EngineStats", "bucket_for", "make_buckets"]
+__all__ = ["EngineFacade", "ExpertEngine", "EngineStats", "bucket_for",
+           "make_buckets"]
 
 
-class ExpertEngine:
+class EngineFacade:
+    """The serving surface an engine exposes over its ``EngineCore``:
+    ``ExpertEngine`` (one expert) and ``BankedEngine`` (E experts, one
+    wave and one captured step for all) share it."""
+
+    def __init__(self, model: BaseModel, core: EngineCore):
+        self.core = core
+        self.model = model
+        self.device = core.device
+        self.max_len = core.max_len
+        self.len_buckets = core.len_buckets
+        self.batch_buckets = core.batch_buckets
+        self.kv_layout = core.kv_layout
+
+    @property
+    def stats(self) -> EngineStats:
+        return self.core.stats
+
+    def bind_tracer(self, tracer) -> None:
+        """Install a lifecycle tracer on the core (None disables)."""
+        self.core.bind_tracer(tracer)
+
+    def pad_shape(self, n_rows: int, prompt_len: int) -> Tuple[int, int]:
+        """(batch bucket, length bucket) this admission would snap to."""
+        return self.core.pad_shape(n_rows, prompt_len)
+
+    def tick(self, *, defer: bool = False) -> int:
+        """Advance every active wave one decode step (a bank's step
+        covers every member). Returns the number of waves advanced
+        (0 == engine idle)."""
+        return self.core.tick(defer=defer)
+
+    def harvest(self) -> None:
+        """Materialise (one batched copy per wave) and emit every row
+        whose tokens are all available; retire finished waves."""
+        self.core.harvest()
+
+    @property
+    def n_active(self) -> int:
+        return self.core.n_active
+
+    @property
+    def has_pending(self) -> bool:
+        """Still decoding, or holding finished rows not yet polled."""
+        return self.core.has_pending
+
+
+class ExpertEngine(EngineFacade):
     """One expert model with bucketed shapes and resident groups. Runs on
     ``cuda`` unless ``device="cpu"``; ``params`` must live there (and may
     be shared with other engines: the engine never copies them). On CUDA
@@ -48,30 +96,14 @@ class ExpertEngine:
                  chunk_len: Optional[int] = None,
                  speculate_k: int = 0, draft=None, device=None,
                  capture_decode: bool = True):
-        self.core = EngineCore(model, [params], max_len=max_len,
-                               min_len_bucket=min_len_bucket,
-                               batch_buckets=batch_buckets,
-                               kv_layout=kv_layout, page_size=page_size,
-                               pool_pages=pool_pages, chunk_len=chunk_len,
-                               speculate_k=speculate_k, draft=draft,
-                               device=device,
-                               capture_decode=capture_decode)
-        self.model = model
+        super().__init__(model, EngineCore(
+            model, [params], max_len=max_len, min_len_bucket=min_len_bucket,
+            batch_buckets=batch_buckets, kv_layout=kv_layout,
+            page_size=page_size, pool_pages=pool_pages, chunk_len=chunk_len,
+            speculate_k=speculate_k, draft=draft, device=device,
+            capture_decode=capture_decode))
         self.params = params
-        self.device = self.core.device
-        self.max_len = self.core.max_len
-        self.len_buckets = self.core.len_buckets
-        self.batch_buckets = self.core.batch_buckets
-        self.kv_layout = self.core.kv_layout
         self._gen_serial = 0           # private generate() uid namespace
-
-    @property
-    def stats(self) -> EngineStats:
-        return self.core.stats
-
-    def bind_tracer(self, tracer) -> None:
-        """Install a lifecycle tracer on the core (None disables)."""
-        self.core.bind_tracer(tracer)
 
     @property
     def spec(self) -> ExpertSpec:
@@ -79,10 +111,6 @@ class ExpertEngine:
         return ExpertSpec.of_engine(self)
 
     # -- admission -------------------------------------------------------
-    def pad_shape(self, n_rows: int, prompt_len: int) -> Tuple[int, int]:
-        """(batch bucket, length bucket) this admission would snap to."""
-        return self.core.pad_shape(n_rows, prompt_len)
-
     def admit(self, uids: Sequence[int], prompts: Sequence[np.ndarray],
               max_new: Sequence[int], *, defer: bool = False) -> None:
         """Prefill a micro-batch and keep it resident for ticking.
@@ -97,28 +125,9 @@ class ExpertEngine:
             {0: (list(uids), list(prompts), list(max_new))}, defer=defer)
 
     # -- decoding --------------------------------------------------------
-    def tick(self, *, defer: bool = False) -> int:
-        """Advance every active group one decode step. Returns the number
-        of groups advanced (0 == engine idle)."""
-        return self.core.tick(defer=defer)
-
-    def harvest(self) -> None:
-        """Materialise (one batched copy per wave) and emit every row
-        whose tokens are all available; retire finished groups."""
-        self.core.harvest()
-
     def poll(self) -> List[Tuple[int, np.ndarray]]:
         """Drain finished (uid, tokens) pairs."""
         return [(uid, seq) for _local, uid, seq in self.core.poll()]
-
-    @property
-    def n_active(self) -> int:
-        return self.core.n_active
-
-    @property
-    def has_pending(self) -> bool:
-        """Still decoding, or holding finished rows not yet polled."""
-        return self.core.has_pending
 
     # -- blocking convenience --------------------------------------------
     def generate(self, tokens, max_new: int) -> np.ndarray:

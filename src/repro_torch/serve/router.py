@@ -21,7 +21,7 @@ import contextlib
 import dataclasses
 import hashlib
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +37,7 @@ class RouteResult:
     coarse: np.ndarray        # (B, top_k) expert indices, best first
     coarse_score: np.ndarray  # (B, top_k) scores (lower = better)
     fine: np.ndarray          # (B,) class index within the top-1 expert
+    shard: Optional[np.ndarray] = None  # (B,) placement shard ids
     cache_hits: int = 0
 
 
@@ -68,12 +69,19 @@ class PrefixLRU:
 
 
 class Router:
-    """Batch router with bounded shapes and a fingerprint LRU. (Shard
-    ids for banked placement arrive with port slice A9.)"""
+    """Batch router with bounded shapes and a fingerprint LRU.
+
+    ``shard_of`` (expert index -> shard id, from a ``PlacementPlan``)
+    makes every ``RouteResult`` carry the shard serving each row. Shard
+    ids are derived from the top-1 expert after the LRU, so cached
+    decisions stay placement-agnostic.
+    """
 
     def __init__(self, matcher: ExpertMatcher, *, cache_size: int = 4096,
-                 use_fine_kernel: bool = True, max_rows: int = 256):
+                 use_fine_kernel: bool = True, max_rows: int = 256,
+                 shard_of: Optional[Dict[int, int]] = None):
         self.matcher = matcher
+        self.shard_of = dict(shard_of) if shard_of is not None else None
         self.device = matcher.device
         self.use_fine_kernel = use_fine_kernel and \
             matcher.centroids is not None
@@ -82,8 +90,9 @@ class Router:
             collections.OrderedDict()
         self.cache_size = cache_size
         self.stats = {"routed": 0, "cache_hits": 0, "score_calls": 0}
-        # per-expert top-1 hit counts (the expert hub's popularity signal
-        # in a later slice); hits_lock guards them once shared
+        # per-expert top-1 hit counts: the popularity signal the expert
+        # hub's eviction reads (ExpertHub.bind_popularity shares this very
+        # Counter and points hits_lock at the hub lock)
         self.expert_hits: collections.Counter = collections.Counter()
         self.hits_lock: Optional[threading.Lock] = None
 
@@ -184,7 +193,12 @@ class Router:
               else contextlib.nullcontext()):
             for e in coarse[:, 0]:
                 self.expert_hits[int(e)] += 1
-        return RouteResult(coarse, score, fine, cache_hits=hits)
+        shard = None
+        if self.shard_of is not None:
+            shard = np.asarray([self.shard_of.get(int(e), -1)
+                                for e in coarse[:, 0]], np.int64)
+        return RouteResult(coarse, score, fine, shard=shard,
+                           cache_hits=hits)
 
     def _remember(self, key: bytes, value) -> None:
         # copy: the (c, s) rows are views into a whole routed chunk

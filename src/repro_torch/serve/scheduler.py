@@ -3,27 +3,32 @@ paper as a serving system).
 
 Life of a request:
 
-  submit() -> Router.route (fingerprint LRU + the routing kernels)
+  submit() -> Router.route (fingerprint LRU + the routing kernels,
+              shard ids from the placement plan)
            -> per-expert FIFO queue, sub-bucketed by prompt-length bucket
   step()   -> the dispatch executor runs one round over all shards:
-              admission (per shard, pick one length bucket — fullest
-              wins, with age-based promotion so sparse buckets can't
-              starve — and admit one micro-batch; a paged engine pulls
-              the head row's prompt-prefix cohort into the same wave and
-              requeues the rows when its page pool is exhausted), then
-              pending prefill chunks under the step's token budget, then
-              decode (every shard with resident waves advances one
-              token), then engine harvest. With the default
-              ``overlapped`` executor every prefill and decode tick is
-              *enqueued* before anything blocks; ``executor="serial"``
-              keeps the blocking per-tick reference behaviour.
-           -> harvest: finished rows become Responses immediately
+              the expert hub's lifecycle round (commit staged experts
+              into slots, kick staging), then admission (per shard, pick
+              one length bucket — fullest wins, with age-based promotion
+              so sparse buckets can't starve — and admit one dispatch
+              group: a banked shard's wave holds every member's
+              micro-batch; a paged engine pulls the head row's
+              prompt-prefix cohort into the same wave and requeues the
+              rows when its page pool is exhausted; a hub shard parks the
+              rows of a non-resident expert), then pending prefill chunks
+              under the step's token budget, then decode (every shard
+              with resident waves advances one token; one tick per bank),
+              then engine harvest. With the default ``overlapped``
+              executor every prefill and decode tick is *enqueued* before
+              anything blocks; ``executor="serial"`` keeps the blocking
+              per-tick reference behaviour.
+           -> harvest: finished rows become Responses immediately,
+              demuxed through the shard's expert list (a hub's through
+              each row's routed expert)
   drain()  -> step() until all queues and engines are empty
 
 Queues persist across calls, so requests submitted in *different*
-``submit`` calls coalesce into the same micro-batch. This module holds
-the one-engine-per-expert path; banked placement and the expert hub
-arrive with port slice A9.
+``submit`` calls coalesce into the same micro-batch.
 """
 from __future__ import annotations
 
@@ -40,7 +45,9 @@ from ..obs.metrics import Counter, Histogram, MetricsRegistry
 from ..obs.trace import NULL_TRACER
 from .core import DispatchExecutor, get_executor
 from .engine import ExpertEngine
+from .hub import ExpertHub, HubMember, NotResident
 from .kvcache import PagePoolExhausted
+from .placement import BankMember, PlacementPlan, Shard
 from .router import PrefixLRU, Router
 
 
@@ -50,7 +57,9 @@ class Request:
     features: np.ndarray            # (784,) matcher fingerprint
     prompt: np.ndarray              # (S,) int32 tokens
     max_new_tokens: int = 8
-    expert: Optional[int] = None    # pre-routed: skip the matcher
+    expert: Optional[int] = None    # pre-routed: skip the matcher (the
+    #                                 paper's repeat clients know their
+    #                                 expert; also the hub's long tail)
 
 
 @dataclasses.dataclass
@@ -60,7 +69,7 @@ class Response:
     fine_class: int
     tokens: np.ndarray
     coarse_scores: Optional[np.ndarray] = None
-    shard: int = -1                 # shard that served the row
+    shard: int = -1                 # placement shard that served the row
 
 
 @dataclasses.dataclass
@@ -71,7 +80,8 @@ class SchedulerConfig:
     #                                 skipped before it wins admission
     check_every: int = 0            # >0: run check_invariants() every N
     #                                 steps (PagePool.check on every
-    #                                 paged shard)
+    #                                 paged shard, the hub's state
+    #                                 machine and pin conservation)
     prefill_tokens_per_step: int = 0
     #                                 per-shard prompt-token budget for
     #                                 pending prefill chunks each step
@@ -97,17 +107,11 @@ class SchedulerStats:
     promotions: int = 0
     orphaned: int = 0
     kv_stalls: int = 0
+    resident_stalls: int = 0
     invariant_checks: int = 0
 
     def as_dict(self) -> Dict[str, int]:
         return dataclasses.asdict(self)
-
-
-@dataclasses.dataclass(frozen=True)
-class Shard:
-    """One dispatch group: here always a single expert's engine."""
-    sid: int
-    experts: Tuple[int, ...]
 
 
 @dataclasses.dataclass
@@ -118,10 +122,11 @@ class _Pending:
     shard: int = -1
     seq: int = 0                    # submit order, for age promotion
     prefix_key: bytes = b""         # prompt-prefix cohort key (PrefixLRU)
-    expert: int = -1                # routed expert
+    expert: int = -1                # routed expert (hub demux + unpin)
     # lifecycle accounting (tracer clock, seconds): queue time is
     # submit -> admit minus the stalled share; ``stall_since`` is open
-    # while the row is parked on PagePoolExhausted backpressure
+    # while the row is parked on NotResident / PagePoolExhausted
+    # backpressure
     trace: int = 0                  # trace id (0 when tracing is off)
     t_submit: float = 0.0
     t_admit: float = 0.0
@@ -130,26 +135,77 @@ class _Pending:
 
 
 class Scheduler:
-    """Routes, queues, batches and ticks one engine per expert."""
+    """Routes, queues, batches and ticks a fleet of expert shards: one
+    engine per expert, banks from a ``PlacementPlan``, or an
+    ``ExpertHub``'s slot bank over its whole catalog."""
 
     def __init__(self, router: Optional[Router],
                  registry: ExpertRegistry,
                  config: Optional[SchedulerConfig] = None,
-                 placement=None,
+                 placement: Optional[PlacementPlan] = None,
                  executor: "str | DispatchExecutor" = "overlapped",
-                 hub=None, tracer=None):
-        if placement is not None:
-            raise NotImplementedError(
-                "banked placement arrives with port slice A9")
-        if hub is not None:
-            raise NotImplementedError(
-                "the expert hub arrives with port slice A9")
+                 hub: Optional[ExpertHub] = None, tracer=None):
         self.router = router
         self.registry = registry
         self.config = config or SchedulerConfig()
+        self.hub = hub
         self.executor = get_executor(executor)
-        self.shards = [Shard(sid=e, experts=(e,))
-                       for e in range(len(registry))]
+        if hub is not None:
+            if placement is not None:
+                raise ValueError("hub and placement are exclusive: the "
+                                 "hub owns its own slot bank")
+            if len(hub) != len(registry):
+                raise ValueError(
+                    f"hub catalog ({len(hub)} experts) does not match "
+                    f"the registry ({len(registry)}); build the "
+                    "registry via hub.build_registry()")
+            for e in range(len(registry)):
+                be = registry[e].backend
+                if not (isinstance(be, HubMember) and be.hub is hub
+                        and be.expert == e):
+                    # a same-length foreign registry would serve through
+                    # the hub's slots under the wrong expert names
+                    raise ValueError(
+                        f"registry entry {e} ({registry[e].name!r}) is "
+                        "not this hub's HubMember; build the registry "
+                        "via hub.build_registry()")
+            # one shard over the whole catalog: every wave is served by
+            # the hub's slot bank, groups keyed by slot
+            self.shards = [Shard(sid=0,
+                                 experts=tuple(range(len(registry))),
+                                 bank=hub.bank)]
+        elif placement is not None:
+            # the plan must describe THIS registry: a stale plan would
+            # serve with another registry's experts' params
+            missing = set(range(len(registry))) - set(placement.shard_of)
+            if missing:
+                raise ValueError(
+                    f"placement plan does not cover experts "
+                    f"{sorted(missing)} (registry grown after "
+                    f"plan_placement?); re-plan on this registry")
+            for shard in placement.shards:
+                if not shard.banked:
+                    continue
+                for local, e in enumerate(shard.experts):
+                    be = registry[e].backend if e < len(registry) else None
+                    if not (isinstance(be, BankMember)
+                            and be.bank is shard.bank
+                            and be.local == local):
+                        raise ValueError(
+                            f"placement plan does not match registry at "
+                            f"expert {e}; re-plan with plan_placement "
+                            f"on this registry")
+            self.shards = list(placement.shards)
+        else:  # every expert is its own dispatch group
+            for e in range(len(registry)):
+                if isinstance(registry[e].backend, BankMember):
+                    raise ValueError(
+                        f"expert {registry[e].name!r} is bank-placed "
+                        "(plan_placement rebound its backend to a "
+                        "BankMember); pass that PlacementPlan via "
+                        "placement=")
+            self.shards = [Shard(sid=e, experts=(e,))
+                           for e in range(len(registry))]
         self._shard_of = {e: s.sid for s in self.shards for e in s.experts}
         if self.config.speculate_k is not None:
             want = int(self.config.speculate_k)
@@ -192,19 +248,21 @@ class Scheduler:
                                  for k, c in self._counters.items()})
 
     def bind_tracer(self, tracer) -> None:
-        """Install a lifecycle tracer here and on every engine core (None
-        restores the disabled NULL_TRACER)."""
+        """Install a lifecycle tracer here, on every engine core and on
+        the hub (None restores the disabled NULL_TRACER)."""
         self.tracer = tracer if tracer is not None else NULL_TRACER
         for shard in self.shards:
             eng = self._shard_engine(shard)
             if eng is not None:
                 eng.core.bind_tracer(self.tracer)
+        if self.hub is not None:
+            self.hub.bind_tracer(self.tracer)
 
     def _build_metrics(self) -> MetricsRegistry:
         """The snapshot tree: scheduler counters + queue and stall
-        latency, every engine's ``EngineStats`` (and its draft's identity
-        where it speculates), every paged shard's page pool counters and
-        the router."""
+        latency, every shard engine's ``EngineStats`` (and its draft's
+        identity where it speculates), every paged shard's page pool
+        counters, the router and the hub."""
         obs = MetricsRegistry()
         obs.register("scheduler", lambda: self.stats.as_dict())
         obs.register("scheduler/latency/queue_ms", self._h_queue)
@@ -223,6 +281,8 @@ class Scheduler:
                                  eng.core.draft.describe())
         if self.router is not None:
             obs.register("router", self._router_metrics)
+        if self.hub is not None:
+            obs.register("hub", self.hub.metrics_snapshot)
         return obs
 
     def _router_metrics(self) -> Dict[str, Any]:
@@ -251,7 +311,10 @@ class Scheduler:
     def submit(self, requests: Sequence[Request]) -> int:
         """Route and enqueue; returns how many were admitted — always a
         prefix of ``requests``, so callers can resubmit the tail later.
-        uids must be unique among in-flight requests."""
+        uids must be unique among in-flight requests. Requests carrying
+        ``expert=`` are pre-routed: they skip the matcher (and are the
+        only kind a router-less hub scheduler takes) but still feed the
+        popularity counter the hub's eviction reads."""
         if not requests:
             return 0
         batch_seen = set()
@@ -286,14 +349,20 @@ class Scheduler:
                     raise ValueError(f"pre-routed expert {e} out of "
                                      f"range [0, {len(self.registry)})")
                 scores = np.zeros(top_k, np.float32)
-                if self.router is not None:
+                sid = self._shard_of.get(e, -1)
+                # pre-routed hits go through the hub's locked mutation
+                # point: the shared Counter is read by its eviction
+                if self.hub is not None:
+                    self.hub.note_hit(e)
+                elif self.router is not None:
                     self.router.expert_hits[e] += 1
             else:
                 j = routed_at[i]
                 e = int(routed.coarse[j, 0])
                 fine = int(routed.fine[j])
                 scores = routed.coarse_score[j]
-            sid = self._shard_of.get(e, -1)
+                sid = (int(routed.shard[j]) if routed.shard is not None
+                       else self._shard_of.get(e, -1))
             engine = self.registry[e].backend
             sb = (engine.pad_shape(1, len(r.prompt))[1]
                   if hasattr(engine, "pad_shape") else len(r.prompt))
@@ -342,18 +411,36 @@ class Scheduler:
                    for eng in map(self._shard_engine, self.shards))
 
     def check_invariants(self) -> None:
-        """Page-pool refcount books balance on every paged shard
-        (``PagePool.check``), under real traffic. Enabled every N steps
-        via ``SchedulerConfig.check_every``."""
+        """Under real traffic: page-pool refcount books balance on every
+        paged shard (``PagePool.check``), the hub's catalog / slot state
+        machine is legal (``ExpertHub.check``), and residency pins
+        conserve — every pin is held by exactly one admitted, unharvested
+        row. Enabled every N steps via ``SchedulerConfig.check_every``."""
         for shard in self.shards:
             if self._paged_shard(shard):
                 self._shard_engine(shard).core.pool.check()
+        if self.hub is not None:
+            self.hub.check()
+            pins = self.hub.total_pins()
+            in_flight = len(self._meta) - self.n_queued
+            assert pins == in_flight, (
+                f"pin conservation broke: hub holds {pins} pins but "
+                f"{in_flight} rows are admitted and unharvested")
         self._counters["invariant_checks"].inc()
 
+    def close(self) -> None:
+        """Shut down background machinery (the hub's staging worker);
+        idempotent, safe without a hub."""
+        if self.hub is not None:
+            self.hub.close()
+
     # -- internals -------------------------------------------------------
-    def _shard_engine(self, shard: Shard) -> Optional[ExpertEngine]:
-        """The tickable engine behind a shard; None for stub/legacy
-        backends that complete at admission."""
+    def _shard_engine(self, shard: Shard):
+        """The tickable engine behind a shard (a bank or an
+        ExpertEngine); None for stub/legacy backends that complete at
+        admission."""
+        if shard.banked:
+            return shard.bank
         engine = self.registry[shard.experts[0]].backend
         return engine if isinstance(engine, ExpertEngine) else None
 
@@ -433,10 +520,10 @@ class Scheduler:
             q.appendleft(p)
         self.n_queued += len(take)
 
-    def _note_stall(self, e: int, sb: int) -> None:
+    def _note_stall(self, event: str, e: int, sb: int) -> None:
         """Open the stall clock on every parked row in queue (e, sb) that
-        isn't already stalled, and emit one ``kv.requeue`` event covering
-        exactly those rows."""
+        isn't already stalled, and emit one ``event`` (``hub.park`` or
+        ``kv.requeue``) covering exactly those rows."""
         q = self.queues[e].get(sb)
         if not q:
             return
@@ -445,24 +532,25 @@ class Scheduler:
         for p in fresh:
             p.stall_since = t
         if fresh and self.tracer.enabled:
-            self.tracer.event("kv.requeue", expert=e, rows=len(fresh),
+            self.tracer.event(event, expert=e, rows=len(fresh),
                               uids=[p.req.uid for p in fresh],
                               traces=[p.trace for p in fresh])
 
-    def _mark_admitted(self, take: List[_Pending], sid: int, sb: int
-                       ) -> None:
+    def _mark_admitted(self, takes: Sequence[List[_Pending]], sid: int,
+                       sb: int) -> None:
         """Close stall clocks and stamp admission time on every row of a
-        successfully admitted micro-batch."""
+        successfully admitted dispatch group."""
         t = self.tracer.now()
-        for p in take:
+        rows = [p for take in takes for p in take]
+        for p in rows:
             if p.stall_since is not None:
                 p.stalled_s += t - p.stall_since
                 p.stall_since = None
             p.t_admit = t
-        if take and self.tracer.enabled:
+        if rows and self.tracer.enabled:
             self.tracer.event("request.admit", shard=sid, bucket=sb,
-                              uids=[p.req.uid for p in take],
-                              traces=[p.trace for p in take])
+                              uids=[p.req.uid for p in rows],
+                              traces=[p.trace for p in rows])
 
     def _finish_row(self, p: _Pending) -> None:
         """Close the row's lifecycle accounting at response emission:
@@ -484,13 +572,86 @@ class Scheduler:
                 total_ms=(t - p.t_submit) * 1e3)
             self.tracer.release_uid(p.req.uid)
 
+    def _service_hub(self) -> None:
+        """Drive the expert hub's lifecycle one round (no-op without a
+        hub): commit staged wanted experts into slots and kick staging.
+        Runs at the head of every executor step, so installs are enqueued
+        before this step's prefills and decode ticks and staging I/O
+        overlaps device work. With nothing active on the device the hub
+        waits on staging instead of spinning the drain loop."""
+        if self.hub is None:
+            return
+        idle = not any(eng is not None and eng.n_active
+                       for eng in map(self._shard_engine, self.shards))
+        self.hub.service(block=idle)
+
     def _admit_batches(self, *, defer: bool = False) -> None:
-        """Issue one micro-batch per shard. With ``defer`` the prefills
-        are only enqueued."""
+        """Issue one dispatch group per shard. With ``defer`` the
+        prefills are only enqueued."""
         for shard in self.shards:
             sb = self._pick_bucket(shard)
-            if sb is not None:
+            if sb is None:
+                continue
+            if shard.banked:
+                self._admit_banked(shard, sb, defer=defer)
+            else:
                 self._admit_single(shard.experts[0], sb, defer=defer)
+
+    def _admit_banked(self, shard: Shard, sb: int, *,
+                      defer: bool = False) -> None:
+        """One dispatch group: every member's micro-batch from the chosen
+        bucket rides one bank wave, keyed by the member's local index,
+        or over the hub's bank by its slot. A non-resident hub expert's
+        rows park in their queue (``NotResident``) while the hub stages
+        and commits it; a paged bank whose pool cannot host the wave
+        requeues the rows."""
+        hub, bank = self.hub, shard.bank
+        paged = self._paged_shard(shard)
+        cap = min(self.config.max_batch, bank.batch_buckets[-1])
+        groups, popped = {}, {}
+        stalled = 0
+        for local, e in enumerate(shard.experts):
+            if not self.queues[e].get(sb):
+                continue
+            key = local
+            if hub is not None:
+                try:
+                    key = hub.acquire(e)
+                except NotResident:
+                    stalled += 1    # rows stay parked in their queue
+                    self._note_stall("hub.park", e, sb)
+                    continue
+            take = self._pop(e, sb, cap, prefix_group=paged)
+            if not take:
+                continue
+            if hub is not None:
+                hub.pin(e, len(take))
+            popped[e] = take
+            groups[key] = ([p.req.uid for p in take],
+                           [p.req.prompt for p in take],
+                           [p.req.max_new_tokens for p in take])
+        if stalled:
+            self._counters["resident_stalls"].inc(stalled)
+        if not groups:
+            return
+        try:
+            bank.admit(groups, defer=defer)
+        except PagePoolExhausted:
+            # unwind pops and pins on both exits: the fatal re-raise must
+            # not strand rows out of their queues or leave pins that make
+            # the experts unevictable for good
+            for e, take in popped.items():
+                self._requeue(e, sb, take)
+                if hub is not None:
+                    hub.unpin(e, len(take))
+            if not bank.n_active:
+                raise            # pool too small for even one wave
+            self._counters["kv_stalls"].inc()
+            for e in popped:
+                self._note_stall("kv.requeue", e, sb)
+            return
+        self._counters["batches"].inc()
+        self._mark_admitted(list(popped.values()), shard.sid, sb)
 
     def _admit_single(self, e: int, sb: int, *,
                       defer: bool = False) -> None:
@@ -514,11 +675,11 @@ class Scheduler:
                 if not engine.n_active:
                     raise      # pool too small for even one wave
                 self._requeue(e, sb, take)
-                self._note_stall(e, sb)
+                self._note_stall("kv.requeue", e, sb)
                 self._counters["kv_stalls"].inc()
                 return
             self._counters["batches"].inc()
-            self._mark_admitted(take, self._shard_of.get(e, -1), sb)
+            self._mark_admitted([take], self._shard_of.get(e, -1), sb)
         elif engine is None:
             self._counters["batches"].inc()
             for p in take:
@@ -575,14 +736,27 @@ class Scheduler:
             eng = self._shard_engine(shard)
             if eng is None:
                 continue
-            for uid, toks in eng.poll():
+            for item in eng.poll():
+                if shard.banked:
+                    local, uid, toks = item
+                else:
+                    uid, toks = item
+                    local = 0
                 if uid not in self._meta and isinstance(uid, tuple):
-                    # generate()'s private uid namespace: rows of a call
-                    # that raised mid-flight surface here with no owner
+                    # a private uid namespace (generate(), hub warmup):
+                    # rows of a call that raised mid-flight surface here
+                    # with no owner
                     self._counters["orphaned"].inc()
                     continue
                 p = self._meta.pop(uid)
-                name = self.registry[shard.experts[0]].name
+                if self.hub is not None:
+                    # hub waves key groups by slot, whose owner changes:
+                    # demux through the row's routed expert and release
+                    # its residency pin
+                    name = self.registry[p.expert].name
+                    self.hub.unpin(p.expert)
+                else:
+                    name = self.registry[shard.experts[local]].name
                 self._done.append(self._response(
                     p, name, toks[:p.req.max_new_tokens]))
                 self._finish_row(p)
@@ -595,61 +769,77 @@ class Scheduler:
 
 
 class RoutedServer:
-    """ExpertMatcher in front of one engine per expert.
+    """ExpertMatcher in front of a fleet of expert shards.
 
     ``serve`` is submit-then-drain, returning responses in request order;
     incremental users call ``submit``/``step`` directly. ``executor``
     (``"overlapped"`` — the default — or ``"serial"``, the blocking
     reference) picks how each step drives its shards; both give identical
     tokens. ``prefill_tokens_per_step`` bounds the chunked-prefill tokens
-    each paged shard issues per step; ``check_every`` runs the page-pool
-    invariant check every N steps; ``speculate_k``, where given, asserts
-    every engine was built with it (``SchedulerConfig.speculate_k``). Runs on ``cuda`` unless
-    ``device="cpu"``; the matcher and the engines must live there.
-    ``placement`` and ``hub`` arrive with port slice A9.
+    each paged shard issues per step; ``check_every`` runs the invariant
+    checks every N steps; ``speculate_k``, where given, asserts every
+    engine was built with it (``SchedulerConfig.speculate_k``).
+
+    ``placement`` (from ``plan_placement``) serves banked shards instead
+    of one engine per expert. ``hub`` (an ``ExpertHub`` whose
+    ``build_registry()`` made ``registry``) serves a catalog larger than
+    its device slots: non-resident experts park their rows while their
+    checkpoints stage, and the router's hits drive eviction; with a hub
+    ``matcher=None`` is allowed when every request is pre-routed
+    (``Request.expert``). Runs on ``cuda`` unless ``device="cpu"``; the
+    matcher, the engines, banks and hub must live there. ``close()``
+    joins the hub's staging worker.
     """
 
     def __init__(self, matcher: Optional[ExpertMatcher],
                  registry: ExpertRegistry,
                  *, max_batch: int = 16, route_cache_size: int = 4096,
-                 use_fine_kernel: bool = True, placement=None,
+                 use_fine_kernel: bool = True,
+                 placement: Optional[PlacementPlan] = None,
                  executor: "str | DispatchExecutor" = "overlapped",
-                 hub=None, check_every: int = 0,
+                 hub: Optional[ExpertHub] = None, check_every: int = 0,
                  prefill_tokens_per_step: int = 0,
                  speculate_k: Optional[int] = None, tracer=None,
                  device=None):
-        if placement is not None:
-            raise NotImplementedError(
-                "banked placement arrives with port slice A9")
-        if hub is not None:
-            raise NotImplementedError(
-                "the expert hub arrives with port slice A9")
-        self.device = resolve_device(device)
-        if matcher is None:
+        if matcher is None and hub is None:
             raise ValueError("matcher=None requires a hub serving "
-                             "pre-routed requests (port slice A9)")
-        if len(registry) != matcher.n_experts:
-            raise ValueError(f"registry holds {len(registry)} experts, the "
-                             f"matcher's bank {matcher.n_experts}")
-        if matcher.device.type != self.device.type:
-            raise ValueError(f"matcher lives on {matcher.device}, the "
-                             f"server runs on {self.device}")
+                             "pre-routed requests")
+        self.device = resolve_device(device)
+        if matcher is not None:
+            if len(registry) != matcher.n_experts:
+                raise ValueError(f"registry holds {len(registry)} experts, "
+                                 f"the matcher's bank {matcher.n_experts}")
+            if matcher.device.type != self.device.type:
+                raise ValueError(f"matcher lives on {matcher.device}, the "
+                                 f"server runs on {self.device}")
         for e in range(len(registry)):
             be = registry[e].backend
-            if isinstance(be, ExpertEngine) and \
-                    be.device.type != self.device.type:
+            dev = getattr(be, "device", None)
+            if isinstance(be, (ExpertEngine, BankMember, HubMember)) and \
+                    dev.type != self.device.type:
                 raise ValueError(f"expert {registry[e].name!r} runs on "
-                                 f"{be.device}, the server on {self.device}")
+                                 f"{dev}, the server on {self.device}")
         self.matcher = matcher
         self.registry = registry
-        self.router = Router(matcher, cache_size=route_cache_size,
-                             use_fine_kernel=use_fine_kernel)
+        self.placement = placement
+        self.hub = hub
+        self.router = None if matcher is None else Router(
+            matcher, cache_size=route_cache_size,
+            use_fine_kernel=use_fine_kernel,
+            shard_of=placement.shard_of if placement else None)
+        if hub is not None and self.router is not None:
+            # routing feeds residency: the eviction reads the very Counter
+            # route() increments, so the router's increments take the hub
+            # lock from here on (hits_lock)
+            hub.bind_popularity(self.router.expert_hits,
+                                router=self.router)
         self.scheduler = Scheduler(
             self.router, registry,
             SchedulerConfig(max_batch=max_batch, check_every=check_every,
                             prefill_tokens_per_step=prefill_tokens_per_step,
                             speculate_k=speculate_k),
-            executor=executor, tracer=tracer)
+            placement=placement, executor=executor, hub=hub,
+            tracer=tracer)
         #: the unified metrics registry — ``obs.snapshot()`` is the whole
         #: server's state as one nested dict
         self.obs = self.scheduler.obs
@@ -659,6 +849,17 @@ class RoutedServer:
 
     def snapshot(self) -> Dict[str, Any]:
         return self.obs.snapshot()
+
+    def close(self) -> None:
+        """Join background threads (the hub's staging worker);
+        idempotent."""
+        self.scheduler.close()
+
+    def __enter__(self) -> "RoutedServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def submit(self, requests: Sequence[Request]) -> int:
         return self.scheduler.submit(requests)
@@ -683,7 +884,21 @@ class RoutedServer:
         engines = {self.registry[e].name: self.registry[e].backend.stats
                    for e in range(len(self.registry))
                    if isinstance(self.registry[e].backend, ExpertEngine)}
-        return {"scheduler": self.scheduler.stats,
-                "router": self.router.stats,
-                "engines": engines,
-                "executor": self.scheduler.executor.name}
+        banks = {}
+        for shard in self.scheduler.shards:
+            if not shard.banked:
+                continue
+            if self.hub is not None:
+                label = "hub(%d experts/%d slots)" % (
+                    len(self.registry), self.hub.n_slots)
+            else:
+                label = "bank%d(%s)" % (shard.sid, ",".join(
+                    self.registry[e].name for e in shard.experts))
+            banks[label] = shard.bank.stats
+        out = {"scheduler": self.scheduler.stats,
+               "router": self.router.stats if self.router else {},
+               "engines": engines, "banks": banks,
+               "executor": self.scheduler.executor.name}
+        if self.hub is not None:
+            out["hub"] = self.hub.stats
+        return out

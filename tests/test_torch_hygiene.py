@@ -59,7 +59,9 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing():
               "repro_torch.optim.schedules", "repro_torch.train.loop",
               "repro_torch.data.synthetic", "repro_torch.data.splits",
               "repro_torch.data.preprocess", "repro_torch.launch.train",
-              "repro_torch.core.trainer", "repro_torch.core.mlp_baseline"):
+              "repro_torch.core.trainer", "repro_torch.core.mlp_baseline",
+              "repro_torch.serve.hub", "repro_torch.serve.placement",
+              "repro_torch.checkpoint.io"):
         assert m in loaded, m
     assert not got["lib"], "a kernel library was built at import time"
 
@@ -127,6 +129,22 @@ def test_entry_points_refuse_without_cuda(no_cuda):
     out = srv.serve([tserve.Request(0, np.zeros(784, np.float32),
                                     np.arange(5, dtype=np.int32), 3)])
     assert out[0].tokens.shape == (3,)
+    # banked placement and the expert hub: the bank and the hub refuse,
+    # plan_placement builds its banks on the engines' own device
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.BankedEngine(model, [params, params])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.ExpertHub(model, n_slots=2)
+    plan = tserve.plan_placement(reg)
+    assert plan.shards[0].bank.device.type == "cpu"
+    hub = tserve.ExpertHub(model, n_slots=1, device="cpu")
+    hub.add_expert("a", params)
+    out = tserve.RoutedServer(None, hub.build_registry(), hub=hub,
+                              device="cpu").serve([tserve.Request(
+                                  0, np.zeros(784, np.float32),
+                                  np.arange(5, dtype=np.int32), 3,
+                                  expert=0)])
+    assert out[0].tokens.shape == (3,)
 
 
 def test_mixed_devices_are_refused():
@@ -143,7 +161,11 @@ def test_mixed_devices_are_refused():
     with pytest.raises(ValueError, match="params live on"):
         tserve.ExpertEngine(model, params_meta, device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
-        model.init(0, device="meta")
+        model.init(0, device="xpu")
+    # "meta" builds shapes only (BaseModel.param_shapes): no storage
+    shapes = model.init(0, device="meta")
+    assert shapes["embed"].is_meta and shapes["embed"].shape == \
+        params["embed"].shape
 
 
 def test_chip_smoke_refuses_without_cuda_and_alone(no_cuda, tmp_path):

@@ -152,10 +152,16 @@ def test_generate_does_not_steal_scheduler_rows():
 
 
 def test_later_slice_options_raise():
-    m = tcore.ExpertMatcher(*[{"w_enc": torch.zeros(1, 4, 2)}, {}],
-                            names=["a"])
+    """Banked placement and the hub are ported (A9); what stays out
+    raises: a device mesh (not part of the single-GPU port) and the
+    families of A10."""
+    tmod = tbuild(tget("smollm_135m").reduced(name="later"))
     reg = tcore.ExpertRegistry()
-    reg.add("a", None)
-    for kw in ({"placement": object()}, {"hub": object()}):
-        with pytest.raises(NotImplementedError, match="A9"):
-            tserve.RoutedServer(m, reg, device="cpu", **kw)
+    reg.add("a", tserve.ExpertEngine(tmod, tmod.init(0, device="cpu"),
+                                     max_len=64, device="cpu"))
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tserve.plan_placement(reg, mesh=object())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tserve.ExpertHub(tmod, n_slots=1, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        tbuild(tget("mixtral_8x22b").reduced(name="later-moe"))
