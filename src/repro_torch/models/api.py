@@ -16,12 +16,11 @@ from __future__ import annotations
 
 from .common import ArchConfig
 
-# families the reference registers, and the port slice that brings each
+# families the reference registers that the port does not build yet, and
+# the port slice that brings each
 _LATER = {
-    "moe": "A10 (MoE experts)",
-    "vlm": "A10 (VLM stub embeds)",
-    "hybrid": "A10 (Zamba2 hybrid)",
-    "encdec": "A10 (encoder-decoder)",
+    "hybrid": "A10.3 (Zamba2 hybrid)",
+    "encdec": "A10.4 (encoder-decoder)",
 }
 
 

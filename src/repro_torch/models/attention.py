@@ -201,18 +201,39 @@ def paged_gather(k_pages, v_pages, table):
     return k, v
 
 
+def last_writer(dest, n_dest):
+    """For N writes to flat destinations ``dest`` (N,) in ``[0, n_dest)``:
+    the index of the last write to each one's destination, in O(N +
+    n_dest) and without a host sync. Writing ``src[last_writer(dest, n)]``
+    gives every duplicate the last write's value, so the result is the
+    sequential last-write-wins one (the CPU's, and XLA's) in whatever
+    order the device applies the writes; a plain ``index_put_`` on CUDA
+    lands an arbitrary one. Writes meet only on the trash page, which a
+    real row reads only at masked slots but padding rows read as their
+    prefix: in a capacity-dispatch MoE's prefill those rows take expert
+    slots ahead of real tokens, so the page's contents must not depend
+    on the order."""
+    dest = dest.long()
+    ar = torch.arange(dest.shape[0], device=dest.device)
+    winner = torch.full((n_dest,), -1, dtype=torch.long, device=dest.device)
+    return winner.scatter_reduce_(0, dest, ar, "amax")[dest]
+
+
 def paged_scatter_pages(k_pages, v_pages, scatter_tbl, k, v):
     """Write whole prefill pages in place: k, v (B, S, KV, dh) with S a
     multiple of the page size; scatter_tbl (B, S // page) physical
     destinations. Rows whose compute is discarded point every entry at
-    the trash page; which of several writes to it lands is undefined and
-    harmless (a real row reads the trash page only at masked slots)."""
+    the trash page, where the last of the writes lands (``last_writer``).
+    """
     B, S, KV, dh = k.shape
     npp = scatter_tbl.shape[1]
     page = S // npp
     idx = scatter_tbl.long()
-    k_pages[idx] = k.reshape(B, npp, page, KV, dh).to(k_pages.dtype)
-    v_pages[idx] = v.reshape(B, npp, page, KV, dh).to(v_pages.dtype)
+    src = last_writer(idx.reshape(-1), k_pages.shape[0])
+    k_pages[idx] = k.reshape(B * npp, page, KV, dh)[src].reshape(
+        B, npp, page, KV, dh).to(k_pages.dtype)
+    v_pages[idx] = v.reshape(B * npp, page, KV, dh)[src].reshape(
+        B, npp, page, KV, dh).to(v_pages.dtype)
     return k_pages, v_pages
 
 
@@ -245,8 +266,8 @@ def paged_append(k_pages, v_pages, tbl_col, offset, k1, v1):
     """Write one decoded token per row in place: tbl_col (B,) physical
     pages, offset () in-page slot (shared: rows decode in lockstep), k1,
     v1 (B, 1, KV, dh). Padding rows all write the trash page at the same
-    slot; the winner is undefined and harmless (real rows read the trash
-    page only at masked slots, and padding rows' outputs are dropped)."""
+    slot: the caller orders which lands by passing rows resolved with
+    ``last_writer(tbl_col, n_pages)`` (once a step, not once a layer)."""
     idx = (tbl_col.long(), offset.long().expand(tbl_col.shape[0]))
     k_pages.index_put_(idx, k1[:, 0].to(k_pages.dtype))
     v_pages.index_put_(idx, v1[:, 0].to(v_pages.dtype))
@@ -260,11 +281,14 @@ def paged_append_rows(k_pages, v_pages, tbl_cols, offsets, kw, vw):
     written token; kw, vw: (B, W, KV, dh); (b, w) lands in
     ``pages[tbl_cols[b, w], offsets[b, w]]``. A row's window is owned by
     that row alone (the engine allocates it per row), so two writes meet
-    only on the trash page, from padding rows. Which of them lands there
-    is undefined (``index_put_`` without accumulation, nondeterministic
-    on CUDA) and harmless: a real row reads the trash page only at
-    masked slots, and padding rows' outputs are dropped."""
+    only on the trash page, from padding rows; the last of them lands
+    (``last_writer``)."""
     idx = (tbl_cols.long(), offsets.long())
-    k_pages.index_put_(idx, kw.to(k_pages.dtype))
-    v_pages.index_put_(idx, vw.to(v_pages.dtype))
+    B, W = tbl_cols.shape
+    src = last_writer((idx[0] * k_pages.shape[1] + idx[1]).reshape(-1),
+                      k_pages.shape[0] * k_pages.shape[1])
+    k_pages.index_put_(idx, kw.reshape((B * W,) + kw.shape[2:])[src]
+                       .reshape(kw.shape).to(k_pages.dtype))
+    v_pages.index_put_(idx, vw.reshape((B * W,) + vw.shape[2:])[src]
+                       .reshape(vw.shape).to(v_pages.dtype))
     return k_pages, v_pages

@@ -1,4 +1,6 @@
-"""Decoder-only transformer, dense family (llama/qwen-style GQA).
+"""Decoder-only transformer: dense (llama/qwen-style GQA), MoE
+(mixtral/olmoe, ``models/moe.py``) and the VLM backbone (stub patch
+embeddings prepended), the reference's one ``DecoderLM``.
 
 The reference's ``DecoderLM`` scans stacked layer params; here a Python
 loop walks the same ``L``-stacked tensors (``unbind`` gives per-layer
@@ -29,7 +31,15 @@ query a row. ``paged_verify`` gathers each row's dense view, runs
 
 ``loss`` (training) runs prefill's full-sequence layers over every
 position, each under ``torch.utils.checkpoint`` where ``cfg.remat`` is
-set, and the cross-entropy over the padded vocab.
+set, and the cross-entropy over the padded vocab (text positions only
+where ``cfg.n_stub_embeds`` is set), plus the MoE balance loss.
+
+MoE layers follow the reference's ``dropless`` per call site: full and
+suffix (chunked) prefill drop tokens past an expert's capacity, decode
+and verify do not. A capacity-dispatch prefill's output depends on the
+whole padded call, so for such a model a paged (chunked) or
+prefix-cached prefill gives other logits than a ring one, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -43,10 +53,11 @@ from ..kernels.decode_attention import decode_attention
 from ..kernels.paged_decode_attention import paged_decode_attention
 from .api import BaseModel, register_family
 from .attention import (attention, cache_prefill, init_kv_cache,
-                        paged_append, paged_append_rows, paged_gather,
-                        paged_scatter_pages, suffix_attend)
+                        last_writer, paged_append, paged_append_rows,
+                        paged_gather, paged_scatter_pages, suffix_attend)
 from .common import (ArchConfig, apply_rope, dense_init, dt, embed_init,
                      init_device, rmsnorm, softmax_xent)
+from .moe import init_moe, moe_ffn
 
 
 def _init_layers(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict:
@@ -66,22 +77,30 @@ def _init_layers(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict:
         p["bq"] = torch.zeros((L, H * dh), dtype=dtype, device=dev)
         p["bk"] = torch.zeros((L, KV * dh), dtype=dtype, device=dev)
         p["bv"] = torch.zeros((L, KV * dh), dtype=dtype, device=dev)
-    p["mlp"] = {
-        "w_gate": dense_init(gen, (L, D, Fd), dtype),
-        "w_up": dense_init(gen, (L, D, Fd), dtype),
-        "w_down": dense_init(gen, (L, Fd, D), dtype),
-    }
+    if cfg.n_experts:
+        p["moe"] = init_moe(gen, cfg, dtype, L)
+    else:
+        p["mlp"] = {
+            "w_gate": dense_init(gen, (L, D, Fd), dtype),
+            "w_up": dense_init(gen, (L, D, Fd), dtype),
+            "w_down": dense_init(gen, (L, Fd, D), dtype),
+        }
     return p
 
 
 def _layer_views(params) -> List[Dict]:
-    """Per-layer views of the L-stacked layer params."""
-    lay = params["layers"]
-    flat = {k: v.unbind(0) for k, v in lay.items() if k != "mlp"}
-    mlp = {k: v.unbind(0) for k, v in lay["mlp"].items()}
-    L = len(flat["wq"])
-    return [dict({k: v[i] for k, v in flat.items()},
-                 mlp={k: v[i] for k, v in mlp.items()}) for i in range(L)]
+    """Per-layer views of the L-stacked layer params (nested dicts, as
+    ``mlp`` and ``moe``, keep their nesting)."""
+    def unbind(node):
+        return {k: unbind(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in node.items()}
+
+    def pick(node, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i]
+                for k, v in node.items()}
+
+    per = unbind(params["layers"])
+    return [pick(per, i) for i in range(len(per["wq"]))]
 
 
 def _qkv(h, lp, cfg: ArchConfig, positions):
@@ -99,15 +118,21 @@ def _qkv(h, lp, cfg: ArchConfig, positions):
     return q, k, v.reshape(B, S, KV, dh)
 
 
-def _ffn(h, lp):
+def _ffn(h, lp, cfg: ArchConfig, dropless: bool, with_aux: bool = True):
+    """The layer's FFN: (y, aux). MoE layers route (``dropless`` sets
+    capacity = T) and give their balance loss, or None without
+    ``with_aux``; a dense SwiGLU has none (None)."""
+    if cfg.n_experts:
+        return moe_ffn(lp["moe"], h, cfg, dropless, with_aux)
     mp = lp["mlp"]
     g = F.silu(h @ mp["w_gate"])
     u = h @ mp["w_up"]
-    return (g * u) @ mp["w_down"]
+    return (g * u) @ mp["w_down"], None
 
 
 def _layer_full(x, lp, cfg: ArchConfig, positions):
-    """Full-sequence layer (prefill). Returns (x, (k, v))."""
+    """Full-sequence layer (train / prefill). Returns (x, (k, v), aux);
+    aux is None for a dense layer."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = _qkv(h, lp, cfg, positions)
     o = attention(q, k, v, q_pos=positions, kv_pos=positions,
@@ -115,8 +140,8 @@ def _layer_full(x, lp, cfg: ArchConfig, positions):
     B, S = x.shape[:2]
     x = x + (o.reshape(B, S, -1) @ lp["wo"]).to(x.dtype)
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    x = x + _ffn(h2, lp).to(x.dtype)
-    return x, (k, v)
+    y, aux = _ffn(h2, lp, cfg, dropless=False)
+    return x + y.to(x.dtype), (k, v), aux
 
 
 def _layer_suffix(x, lp, cfg: ArchConfig, positions, pk, pv, offset):
@@ -130,8 +155,8 @@ def _layer_suffix(x, lp, cfg: ArchConfig, positions, pk, pv, offset):
     B, S = x.shape[:2]
     x = x + (o.reshape(B, S, -1) @ lp["wo"]).to(x.dtype)
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    x = x + _ffn(h2, lp).to(x.dtype)
-    return x, (k, v)
+    y, _ = _ffn(h2, lp, cfg, dropless=False, with_aux=False)
+    return x + y.to(x.dtype), (k, v)
 
 
 def _layer_decode(x, lp, t, cfg: ArchConfig, write_attend):
@@ -145,7 +170,8 @@ def _layer_decode(x, lp, t, cfg: ArchConfig, write_attend):
     B = x.shape[0]
     x = x + (o.reshape(B, 1, -1) @ lp["wo"]).to(x.dtype)
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(h2, lp).to(x.dtype)
+    y, _ = _ffn(h2, lp, cfg, dropless=True, with_aux=False)
+    return x + y.to(x.dtype)
 
 
 def _layer_verify(x, lp, cfg: ArchConfig, q_pos, write):
@@ -163,12 +189,15 @@ def _layer_verify(x, lp, cfg: ArchConfig, q_pos, write):
     B, S = x.shape[:2]
     x = x + (o.reshape(B, S, -1) @ lp["wo"]).to(x.dtype)
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(h2, lp).to(x.dtype)
+    y, _ = _ffn(h2, lp, cfg, dropless=True, with_aux=False)
+    return x + y.to(x.dtype)
 
 
 @register_family("dense")
+@register_family("moe")
+@register_family("vlm")
 class DecoderLM(BaseModel):
-    """Dense decoder-only LM (MoE and VLM backbones arrive with A10)."""
+    """Dense / MoE / VLM-backbone decoder-only LM."""
 
     def init(self, generator, device=None):
         """Params from ``generator`` (a ``torch.Generator`` on the target
@@ -191,12 +220,14 @@ class DecoderLM(BaseModel):
 
     # ------------------------------------------------------------------
     def _embed(self, params, batch):
+        """Token embeddings in the compute dtype, with ``stub_embeds``
+        (B, n_stub_embeds, D) prepended where the config has stubs and
+        the batch carries them (a VLM prefill; decode feeds tokens only)."""
         cfg = self.cfg
-        if cfg.n_stub_embeds:
-            raise NotImplementedError(
-                "VLM stub embeds arrive with port slice A10")
-        return params["embed"][batch["tokens"].long()].to(
-            dt(cfg.compute_dtype))
+        x = params["embed"][batch["tokens"].long()].to(dt(cfg.compute_dtype))
+        if cfg.n_stub_embeds and "stub_embeds" in batch:
+            x = torch.cat([batch["stub_embeds"].to(x.dtype), x], dim=1)
+        return x
 
     def _unembed(self, params, x):
         w = (params["embed"].T if self.cfg.tie_embeddings
@@ -206,28 +237,37 @@ class DecoderLM(BaseModel):
     # ------------------------------------------------------------------
     def loss(self, params, batch):
         """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,
-        S) over the padded vocab, through prefill's full-sequence layers:
-        (total, {"ce", "aux"}). Where ``cfg.remat`` is set each layer runs
-        under ``torch.utils.checkpoint`` (the reference's
-        ``jax.checkpoint``): only its input is kept for the backward
-        pass, which recomputes the rest. ``aux``, the reference's MoE
-        balance loss (``total = ce + 0.01 * aux / n_layers``), is 0 for
-        dense layers, so ``total`` is ``ce``."""
+        S) (and ``stub_embeds`` for a VLM) over the padded vocab, through
+        prefill's full-sequence layers: (total, {"ce", "aux"}). Where
+        ``cfg.remat`` is set each layer runs under
+        ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``):
+        only its input is kept for the backward pass, which recomputes
+        the rest. ``aux`` is the MoE balance loss summed over layers (0
+        for dense layers); ``total = ce + 0.01 * aux / n_layers``. With
+        ``cfg.n_stub_embeds`` set only the text positions are scored:
+        the first ``n_stub_embeds`` are cut whether or not the batch
+        carries stubs, as the reference cuts them."""
         cfg = self.cfg
         x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
 
         def layer(x, lp):
-            return _layer_full(x, lp, cfg, positions)[0]
+            x, _, a = _layer_full(x, lp, cfg, positions)
+            return x, a
 
+        aux = x.new_zeros((), dtype=torch.float32)
         for lp in _layer_views(params):
-            x = (checkpoint(layer, x, lp, use_reentrant=False) if cfg.remat
-                 else layer(x, lp))
+            x, a = (checkpoint(layer, x, lp, use_reentrant=False)
+                    if cfg.remat else layer(x, lp))
+            if a is not None:
+                aux = aux + a
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        if cfg.n_stub_embeds:
+            x = x[:, cfg.n_stub_embeds:]
         ce = softmax_xent(self._unembed(params, x), batch["labels"])
-        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
-                                                 device=x.device)}
+        total = ce + 0.01 * aux / max(cfg.n_layers, 1)
+        return total, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------------
     def init_cache(self, batch_size, capacity, device=None):
@@ -243,24 +283,26 @@ class DecoderLM(BaseModel):
         }
 
     def _prefill_layers(self, params, batch):
-        """All layers over the full prompt: (last-position logits (B,
-        Vp), per-layer [(k, v)] each (B, S, KV, dh))."""
+        """All layers over the full prompt (stubs first, where given):
+        (last-position logits (B, Vp), per-layer [(k, v)] each (B, S, KV,
+        dh))."""
         cfg = self.cfg
         x = self._embed(params, batch)
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         kvs = []
         for lp in _layer_views(params):
-            x, kv = _layer_full(x, lp, cfg, positions)
+            x, kv, _ = _layer_full(x, lp, cfg, positions)
             kvs.append(kv)
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
         return self._unembed(params, x[:, -1]), kvs
 
     def prefill(self, params, batch, capacity=None):
-        """batch {"tokens": (B, S)} -> (last-position logits (B, Vp),
-        cache {k, v: (L, B, C, KV, dh), pos (C,), t ()})."""
+        """batch {"tokens": (B, S)} (and a VLM's ``stub_embeds``, whose
+        positions come first and count) -> (last-position logits (B,
+        Vp), cache {k, v: (L, B, C, KV, dh), pos (C,), t ()})."""
         logits, kvs = self._prefill_layers(params, batch)
-        B, S = batch["tokens"].shape
+        B, S = kvs[0][0].shape[:2]
         C = capacity or self.cache_capacity(S)
         cache = self.init_cache(B, C, device=logits.device)
         cache_prefill(cache, torch.stack([k for k, _ in kvs]),
@@ -452,11 +494,13 @@ class DecoderLM(BaseModel):
         kv_pos = pos.index_copy(0, slot, t.reshape(1))
         tbl_col = table.index_select(1, slot // page)[:, 0]
         off = slot[0] % page
+        # padding rows meet on the trash page: the last one's write lands
+        rows = last_writer(tbl_col, pool["k"].shape[0])
         for i, lp in enumerate(_layer_views(params)):
             kp, vp = pool["k"][:, i], pool["v"][:, i]
 
             def write_attend(q, k1, v1, kp=kp, vp=vp):
-                paged_append(kp, vp, tbl_col, off, k1, v1)
+                paged_append(kp, vp, tbl_col, off, k1[rows], v1[rows])
                 return paged_decode_attention(q, kp, vp, table, t, kv_pos,
                                               window=cfg.sliding_window)
 

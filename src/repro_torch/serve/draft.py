@@ -37,6 +37,7 @@ from typing import Any, Dict
 import torch
 
 from ..core.mlp_baseline import forward as mlp_forward, init_mlp
+from ..models.attention import last_writer
 from ..tree import tree_map
 
 
@@ -132,10 +133,7 @@ class BigramTableDraft(DraftModel):
         # the reference's scatter applies the writes in row-major order,
         # so the last one wins. index_put_ leaves the winner undefined,
         # so every write to an index carries its last writer's value
-        n = idx.numel()
-        order = torch.arange(n, device=dev)
-        last = torch.where(idx[:, None] == idx[None, :], order[None, :],
-                           -1).amax(dim=1)
+        last = last_writer(idx, self.vocab + 1)
         state["table"].index_put_((idx,), val[last])
 
 

@@ -112,7 +112,9 @@ def test_cache_append_wraps_the_ring_like_the_reference():
 
 def test_init_layout_matches_reference():
     """The port's own init draws the reference's layout: L-stacked (in,
-    out) weights, padded vocab, f32 norms."""
+    out) weights, padded vocab, f32 norms; for a MoE config the stacked
+    ``moe`` tree (f32 router (L, D, E), experts (L, E, D, F) / (L, E, F,
+    D)) in place of ``mlp``, also on the ``meta`` device."""
     jm, jp, tm, _, _ = _pair("llama")
     tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
 
@@ -122,10 +124,22 @@ def test_init_layout_matches_reference():
 
     assert shapes(tp) == shapes(jp)
     assert tp["layers"]["ln1"].dtype == torch.float32
+    for arch in ("olmoe_1b_7b", "mixtral_8x22b"):
+        jcfg = get_config(arch).reduced(param_dtype="bfloat16")
+        want = shapes(jax.eval_shape(build_model(jcfg).init,
+                                     jax.random.PRNGKey(0)))
+        tm = tbuild(tget(arch).reduced(param_dtype="bfloat16"))
+        got = tm.init(torch.Generator().manual_seed(0), device="cpu")
+        assert shapes(got) == shapes(tm.param_shapes()) == want
+        moe = got["layers"]["moe"]
+        assert moe["router"].dtype == torch.float32
+        assert moe["w_gate"].dtype == torch.bfloat16
+        assert "mlp" not in got["layers"]
 
 
 def test_other_families_name_their_slice():
-    for arch in ("mixtral_8x22b", "zamba2_7b",
-                 "seamless_m4t_large_v2", "internvl2_26b"):
+    for arch in ("zamba2_7b", "seamless_m4t_large_v2"):
         with pytest.raises(NotImplementedError, match="slice A10"):
             tbuild(tget(arch).reduced())
+    for arch in ("olmoe_1b_7b", "mixtral_8x22b", "internvl2_26b"):
+        assert tbuild(tget(arch).reduced()).cfg.family in ("moe", "vlm")

@@ -61,7 +61,7 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing():
               "repro_torch.data.preprocess", "repro_torch.launch.train",
               "repro_torch.core.trainer", "repro_torch.core.mlp_baseline",
               "repro_torch.serve.hub", "repro_torch.serve.placement",
-              "repro_torch.checkpoint.io"):
+              "repro_torch.checkpoint.io", "repro_torch.models.moe"):
         assert m in loaded, m
     assert not got["lib"], "a kernel library was built at import time"
 

@@ -243,3 +243,69 @@ def test_paged_greedy_tokens_equal_ring_tokens(models, chunk_len):
     assert st.prefix_dup_rows == 1 and st.pages_copied >= 1, st
     eng.core.pool.check()
     assert eng.core.pool.counters()["used"] == 0     # wrap: no register
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_duplicate_pool_writes_land_the_last_writer(device):
+    """Writes that meet on one page slot (the trash page, from padding
+    rows) land the last writer's value, as a sequential scatter (the
+    CPU's, XLA's) does, on any device: a capacity-dispatch MoE's padding
+    rows read the trash page, so its contents must not depend on the
+    order the device applies the writes in. Each helper against a Python
+    loop over its writes; the ``cuda`` case repeats it on the card."""
+    from repro_torch.models.attention import (last_writer, paged_append,
+                                              paged_append_rows,
+                                              paged_scatter_pages)
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device(device)
+    assert last_writer(torch.tensor([3, 1, 3, 2, 1], device=dev),
+                       5).tolist() == [2, 4, 2, 3, 4]
+    gen = torch.Generator().manual_seed(0)
+    P1, page, KV, dh, trash = 7, 4, 2, 8, 6
+
+    def pools():
+        return [torch.randn(P1, page, KV, dh, generator=gen).to(dev)
+                for _ in range(2)]
+
+    # prefill pages: rows 1 and 3 are discarded (every page -> trash)
+    tbl = torch.tensor([[0, 1], [trash, trash], [2, 3], [trash, trash]],
+                       dtype=torch.int32, device=dev)
+    k, v = (torch.randn(4, 2 * page, KV, dh, generator=gen).to(dev)
+            for _ in range(2))
+    kp, vp = pools()
+    want_k, want_v = kp.clone(), vp.clone()
+    for b in range(4):
+        for j in range(2):
+            want_k[tbl[b, j]] = k[b, j * page:(j + 1) * page]
+            want_v[tbl[b, j]] = v[b, j * page:(j + 1) * page]
+    paged_scatter_pages(kp, vp, tbl, k, v)
+    assert torch.equal(kp, want_k) and torch.equal(vp, want_v)
+    # per-row windows (verify): rows 0 and 2 pad onto the trash page
+    cols = torch.tensor([[trash, trash], [4, 4], [trash, trash]],
+                        dtype=torch.int32, device=dev)
+    offs = torch.tensor([[1, 2], [0, 1], [1, 2]], dtype=torch.int32,
+                        device=dev)
+    kw, vw = (torch.randn(3, 2, KV, dh, generator=gen).to(dev)
+              for _ in range(2))
+    kp, vp = pools()
+    want_k = kp.clone()
+    for b in range(3):
+        for w in range(2):
+            want_k[cols[b, w], offs[b, w]] = kw[b, w]
+    paged_append_rows(kp, vp, cols, offs, kw, vw)
+    assert torch.equal(kp, want_k)
+    # one decoded token a row, resolved by the caller
+    col = torch.tensor([trash, 5, trash, trash], dtype=torch.int32,
+                       device=dev)
+    k1, v1 = (torch.randn(4, 1, KV, dh, generator=gen).to(dev)
+              for _ in range(2))
+    kp, vp = pools()
+    want_k = kp.clone()
+    for b in range(4):
+        want_k[col[b], 3] = k1[b, 0]
+    rows = last_writer(col, P1)
+    paged_append(kp, vp, col, torch.tensor(3, device=dev), k1[rows],
+                 v1[rows])
+    assert torch.equal(kp, want_k)

@@ -153,8 +153,8 @@ def test_generate_does_not_steal_scheduler_rows():
 
 def test_later_slice_options_raise():
     """Banked placement and the hub are ported (A9); what stays out
-    raises: a device mesh (not part of the single-GPU port) and the
-    families of A10."""
+    raises: a device mesh (not part of the single-GPU port) and the A10
+    families not ported yet (Zamba2, encoder-decoder)."""
     tmod = tbuild(tget("smollm_135m").reduced(name="later"))
     reg = tcore.ExpertRegistry()
     reg.add("a", tserve.ExpertEngine(tmod, tmod.init(0, device="cpu"),
@@ -164,4 +164,4 @@ def test_later_slice_options_raise():
     with pytest.raises(NotImplementedError, match="mesh"):
         tserve.ExpertHub(tmod, n_slots=1, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
-        tbuild(tget("mixtral_8x22b").reduced(name="later-moe"))
+        tbuild(tget("zamba2_7b").reduced(name="later-hybrid"))
