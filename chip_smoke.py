@@ -133,6 +133,24 @@ Phases, each printing one JSON line:
    phase 5 (bare step, and the engine's tick replayed and eager, with
    ``decode_attention``'s us per launch at dh 128, group 1), against its
    weight-read bound (the dropless dispatch reads all 64 experts).
+10c. serve_zamba — once the olmoe weights are freed: an AE bank of K = 4
+   in front of two full-width bf16 ``zamba2_7b`` engines (81 Mamba2
+   layers and one shared attention block applied 13 times, head_dim
+   112; random seeded weights, 13.5 GB each, ring, ``max_len`` 256) and
+   two ``llama3_2_1b`` engines on the serve phase's tensors, 24 routed
+   requests (8-64 prompt tokens, 16 new): graph and eager, serial and
+   overlapped. Every run's tokens equal the first's, ``host_blocks``
+   192 / 12, ``decode_attention``
+   16 x the llama decode steps and none from the Zamba2 engines (they
+   attend through plain ``attention``, as the reference's), routes equal
+   the CPU's. Recorded: req/s, tok/s.
+10d. breakdown_zamba — one Zamba2 wave's decode tick at B 8, timed as in
+   phase 5 (bare step, and the engine's tick replayed and eager), the
+   device time of the same tick without the shared block, of one Mamba2
+   layer and of its ``w_out`` promoted to f32, each replayed alone, and
+   the tick against its least bytes (weights, the shared block once per
+   application, the SSM states and conv windows read and written, the
+   live K/V).
 11. kernels — each kernel against its plain PyTorch version on the same
    inputs at the shapes its serve phase gave it (tolerance stated), and
    its device time beside the plain version's, a library yardstick's and
@@ -182,6 +200,13 @@ Phases, each printing one JSON line:
    tokens against the bf16 peak, peak memory; losses finite and falling;
    no kernel launched. Then one ``make_train_step`` of each, reduced and
    f32, on the card against the CPU: loss, gradients and updated params.
+14. launch_serve — the serving launcher ``repro_torch.launch.serve.main``
+   on its default device (the card), twice: the reference launcher's
+   family cycle (reduced RWKV6, Zamba2, smollm, qwen2_72b, and llama in
+   the encoder-decoder and VLM slots) and ``--hub-slots 2 --kv paged
+   --trace``; each trains its bank and serves 24 requests of 8 new
+   tokens. Every request answered, the trace written, the routing
+   accuracy it reports printed.
 
 The reference phase (2) also runs a reduced f32 ``rwkv6_7b`` expert
 (``ssm_chunk`` 16) on the card and on the CPU, through both of its
@@ -191,7 +216,11 @@ reduced f32 ``olmoe_1b_7b`` (4 experts, top 2: ring, paged with
 ``table`` draft, ``moe_impl="dense"``; router top-k choices that differ
 between card and CPU reported with their f32 gap) and a reduced f32
 ``internvl2_26b`` (8 stub embeddings, prefill and decode): card tokens
-must equal the CPU's. The kernels phase (11) adds rows 3 and 4 at the
+must equal the CPU's; and a reduced f32 ``zamba2_7b`` (5 layers, two
+shared-block applications, trained-like ``dt_bias``): logits and cache
+leaves within 1e-4 of the CPU's scale, two decode launches bit-equal,
+graph, eager and CPU greedy tokens equal, the loss and gradients card
+against CPU. The kernels phase (11) adds rows 3 and 4 at the
 olmoe decode shapes (16 heads over 16 KV heads, dh 128: the ring at B 8,
 S 256; the paged at serve_moe's largest paged MoE bucket, page 8), and
 train_lm (13) a reduced f32 MoE step, card against CPU, router top-k
@@ -204,8 +233,9 @@ graphs captured, host ms of the captures, swaps).
 Then a summary line ``{"kernels": [...], "launch_floor_ms": ...}`` (rows
 3-5 with ``ms_in_graph_step``, their time per launch inside the
 engine's replayed step, row 3 also ``ms_in_moe_graph_step``; rows 1-4
-with ``launches_banked``, ``launches_hub`` and ``launches_moe``, rows
-1-2 with ``launches_train_bank``), the
+with ``launches_banked``, ``launches_hub``, ``launches_moe`` and
+``launches_zamba``, rows 1-2 with ``launches_train_bank``;
+``script_wall_s`` from the start of ``main``), the
 raw ``nvidia-smi`` name and power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result, as it does without a CUDA device.
@@ -247,6 +277,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing measured",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -296,6 +327,12 @@ def main() -> int:
     del mshapes                      # the first olmoe expert's weights
     gc.collect()
     torch.cuda.empty_cache()
+    zamba, zshapes = serve_zamba_phase(np, torch, dev, ops, shapes)
+    emit(zamba)
+    emit(breakdown_zamba_phase(np, torch, dev, zshapes))
+    del zshapes                      # the first Zamba2 expert's weights
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels, floor = kernel_phase(np, torch, dev, ops, shapes)
     # rows 3-5 inside the engine's replayed step (torch.profiler)
     in_step = {"decode_attention": dense["engine"],
@@ -310,6 +347,9 @@ def main() -> int:
         k["launches_moe"] = moe[
             "paged_runs" if k["name"] == "paged_decode_attention"
             else "ring"]["graph serial"]["launches"][k["name"]]
+        # and from serve_zamba's graph serial run (ring)
+        k["launches_zamba"] = zamba["runs"]["graph serial"]["launches"][
+            k["name"]]
         if k["name"] == "decode_attention":
             k["ms_in_moe_graph_step"] = (
                 None if moe_tick["engine"]["decode_attention_kernel"
@@ -333,13 +373,15 @@ def main() -> int:
     bank = train_bank_phase(np, torch, dev, ops, make_timers(torch, dev)[1])
     emit(bank)
     emit(train_lm_phase(np, torch, dev, ops))
+    emit(launch_serve_phase(np, torch, dev, ops))
     for k in kernels:
         if k["name"] in bank["route_launches"]:
             # launches while routing every client split (train_bank)
             k["launches_train_bank"] = bank["route_launches"][k["name"]]
     emit({"kernels": kernels, "launch_floor_ms": min(floor),
           "launch_floor_ms_runs": floor,
-          "launch_floor_call": "one-element float32 add_, 8 bytes"})
+          "launch_floor_call": "one-element float32 add_, 8 bytes",
+          "script_wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -397,7 +439,8 @@ def reference_phase(np, torch, dev):
             "bank_hub": bank_hub_reference(np, torch, dev, model),
             "rwkv": rwkv_reference(np, torch, dev),
             "moe": moe_reference(np, torch, dev),
-            "vlm": vlm_reference(np, torch, dev)}
+            "vlm": vlm_reference(np, torch, dev),
+            "zamba": zamba_reference(np, torch, dev)}
 
 
 def bank_hub_reference(np, torch, dev, model):
@@ -940,7 +983,8 @@ RUNS = ((True, "serial"), (True, "overlapped"), (False, "serial"),
 #: same through graphs and eagerly
 HOST_BLOCKS = {"serve": {"serial": 176, "overlapped": 11},
                "serve_paged": {"serial": 96, "overlapped": 6},
-               "serve_rwkv": {"serial": 192, "overlapped": 12}}
+               "serve_rwkv": {"serial": 192, "overlapped": 12},
+               "serve_zamba": {"serial": 192, "overlapped": 12}}
 #: engine counters a serve run reports as deltas
 DELTAS = ("host_blocks", "decode_steps", "decode_swaps", "decode_captured",
           "decode_capture_ms")
@@ -2828,6 +2872,440 @@ def breakdown_moe_phase(np, torch, dev, mshapes):
             "weight_read_bound_ms": read / HBM_BYTES_PER_S * 1e3,
             "graph_tick_over_bound": engine["graph_wall_ms_per_step"]
             / (read / HBM_BYTES_PER_S * 1e3)}
+
+
+# ---------------------------------------------------------------------------
+# Zamba2: the hybrid family (Mamba2 + one shared attention block)
+# ---------------------------------------------------------------------------
+
+#: the reduced Zamba2 of the reference phase: A = 2 applications of the
+#: shared block and a Mamba2 layer after the last one
+ZAMBA_SMALL = {"n_layers": 5, "attn_every": 2}
+#: (name, family, requests of 24) of the Zamba2 server's experts, bank
+#: order
+ZAMBA_FLEET = (("zamba_a", "hybrid", 7), ("zamba_b", "hybrid", 7),
+               ("llama_a", "dense", 5), ("llama_b", "dense", 5))
+#: a leaf's gradient, card against CPU: |card - cpu| <= this x (|cpu| +
+#: max|cpu|) (tests/test_torch_zamba.py's GRAD_TOL)
+ZAMBA_GRAD_TOL = 2e-4
+
+
+def zamba_trained_like(torch, params, gen):
+    """``dt_bias`` = log(expm1(dt)) for dt ~ U[1e-3, 1e-1], ``D_skip`` and
+    ``ssm_norm`` 1 + N(0, 0.2), in place: at the init's dt_bias of 0 the
+    state decays within a 16-token chunk, and a wrong carry across chunks
+    would agree unseen."""
+    lay = params["layers"]
+    dt = torch.rand(lay["dt_bias"].shape, generator=gen,
+                    device=gen.device) * (1e-1 - 1e-3) + 1e-3
+    lay["dt_bias"].copy_(torch.log(torch.expm1(dt)))
+    for name in ("D_skip", "ssm_norm"):
+        lay[name].copy_(1 + 0.2 * torch.randn(lay[name].shape, generator=gen,
+                                              device=gen.device))
+
+
+def zamba_reference(np, torch, dev):
+    """A reduced f32 ``zamba2_7b`` (5 layers, ``attn_every`` 2, ``ssm_chunk``
+    16, trained-like ``dt_bias``) on the card and on the CPU from the
+    same weights. Model calls: prompts of 8, 24 (a padded chunk) and 32
+    tokens (two chunks) into rings of S + 2 slots, a prefill and four
+    decode steps fed the CPU's tokens (the ring wraps): logits and every
+    cache leaf within abs 1e-4 x max(|logit|, 1); no kernel launches
+    (the family attends through plain ``attention``). Two launches of one
+    eager decode step from the same cache are bit-equal. Engine
+    ``generate`` of 12 tokens: the CPU's, the card's through captured
+    decode graphs and the card's eager tokens are equal. One loss and
+    its gradients on a (2, 32) batch: the loss within rtol 1e-5, each
+    gradient leaf within ``ZAMBA_GRAD_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import ExpertEngine
+    from repro_torch.tree import leaves, value_and_grad
+
+    cfg = get_config("zamba2_7b").reduced(name="smoke-zamba-ref",
+                                          **ZAMBA_SMALL)
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(SEED), device="cpu")
+    zamba_trained_like(torch, cpu, torch.Generator().manual_seed(SEED + 1))
+    gpu = _tree(cpu, lambda t: t.to(dev))
+    rng = np.random.default_rng(SEED + 8)
+    worst, scale, n_steps = 0.0, 0.0, 0
+    ops.reset_launches()
+    for S in (8, 24, 32):
+        toks = rng.integers(0, cfg.vocab_size, size=(3, S)).astype(np.int32)
+        lc, cc = model.prefill(cpu, {"tokens": torch.from_numpy(toks)},
+                               capacity=S + 2)
+        lg, cg = model.prefill(gpu, {"tokens": torch.from_numpy(toks).to(dev)},
+                               capacity=S + 2)
+        for _ in range(4):
+            worst = max(worst, (lg.cpu() - lc).abs().max().item())
+            scale = max(scale, lc.abs().max().item())
+            tok = lc.argmax(-1).to(torch.int32)[:, None]
+            lc, cc = model.decode(cpu, cc, {"token": tok})
+            lg, cg = model.decode(gpu, cg, {"token": tok.to(dev)})
+            n_steps += 1
+        worst = max(worst, (lg.cpu() - lc).abs().max().item())
+        for key in cc:
+            worst = max(worst, (cg[key].cpu().float()
+                                - cc[key].float()).abs().max().item())
+    launches = ops.launches()
+    if any(launches.values()):
+        raise AssertionError(f"zamba reference: kernels launched {launches}")
+    if not worst <= 1e-4 * max(scale, 1.0):
+        raise AssertionError(f"zamba reference: card logits or cache leaves "
+                             f"differ from the CPU by {worst} (scale "
+                             f"{scale})")
+    # two launches of one eager decode step from the same cache
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(3, 24))
+                            .astype(np.int32)).to(dev)
+    lg, cg = model.prefill(gpu, {"tokens": toks}, capacity=32)
+    tok = lg.argmax(-1).to(torch.int32)[:, None]
+    saved = {k: v.clone() for k, v in cg.items()}
+    outs = []
+    for _ in range(2):
+        for k, v in saved.items():
+            cg[k].copy_(v)
+        outs.append(model.decode(gpu, cg, {"token": tok})[0])
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError("zamba reference: two launches of one decode "
+                             "step differ")
+    prompts = [rng.integers(0, cfg.vocab_size, size=(3, S)).astype(np.int32)
+               for S in (8, 24, 32)]
+    want = [ExpertEngine(model, cpu, max_len=64, device="cpu").generate(t, 12)
+            for t in prompts]
+    graph = ExpertEngine(model, gpu, max_len=64, device=dev)
+    got = [graph.generate(t, 12) for t in prompts]
+    eager = ExpertEngine(model, gpu, max_len=64, device=dev,
+                         capture_decode=False)
+    got_eager = [eager.generate(t, 12) for t in prompts]
+    if not all(np.array_equal(a, c) and np.array_equal(b, c)
+               for a, b, c in zip(got, got_eager, want)):
+        raise AssertionError(f"zamba reference: greedy tokens differ (graph,"
+                             f" eager, CPU)\n{got}\n{got_eager}\n{want}")
+    if not graph.stats.decode_captured:
+        raise AssertionError("zamba reference: no decode graph captured")
+    # the loss and its gradients
+    seq = rng.integers(0, cfg.vocab_size, size=(2, 33)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(seq[:, :-1]),
+             "labels": torch.from_numpy(seq[:, 1:])}
+    (loss_c, _), grad_c = value_and_grad(model.loss, cpu, batch)
+    (loss_g, _), grad_g = value_and_grad(
+        model.loss, gpu, {k: v.to(dev) for k, v in batch.items()})
+    grad_err = 0.0
+    for a, b in zip(leaves(grad_g), leaves(grad_c)):
+        d = (a.cpu() - b).abs()
+        bound = ZAMBA_GRAD_TOL * (b.abs() + b.abs().max())
+        grad_err = max(grad_err, (d / (b.abs() + b.abs().max())
+                                  .clamp_min(1e-30)).max().item())
+        if not bool((d <= bound).all()):
+            raise AssertionError(f"zamba reference: a gradient leaf differs "
+                                 f"by {d.max().item()}")
+    if abs(loss_g.item() - loss_c.item()) > 1e-5 * abs(loss_c.item()):
+        raise AssertionError(f"zamba reference: loss {loss_g.item()} on the "
+                             f"card, {loss_c.item()} on the CPU")
+    return {"config": cfg.name, "n_layers": cfg.n_layers,
+            "attn_every": cfg.attn_every, "attn_apps": model.n_attn_apps,
+            "ssm_chunk": cfg.ssm_chunk, "prompt_lens": [8, 24, 32],
+            "decode_steps": n_steps, "launches": launches,
+            "max_abs_err": worst, "logits_scale": scale,
+            "tol": "abs 1e-4 x max(|logit|, 1), logits and cache leaves",
+            "decode_bit_equal": True, "tokens_equal_graph_eager_cpu": True,
+            "new_tokens": 12, "loss": loss_c.item(),
+            "loss_abs_err": abs(loss_g.item() - loss_c.item()),
+            "grad_max_err_of_scale": grad_err,
+            "grad_tol": f"{ZAMBA_GRAD_TOL} x (|cpu| + max|cpu|)"}
+
+
+def serve_zamba_phase(np, torch, dev, ops, shapes):
+    """Two full-width bf16 ``zamba2_7b`` engines (81 Mamba2 layers, d_model
+    3584, d_inner 7168, 112 SSM heads of 64, state 64, conv 4, chunk 128;
+    one shared attention block of 32 heads of 112 over 32 KV heads and
+    d_ff 14336, applied after every 6th layer: 13 applications, each
+    with its own K/V; vocab 32000 untied; random seeded weights, ring,
+    ``max_len`` 256) and two ``llama3_2_1b`` engines sharing the serve
+    phase's weight tensors, behind an AE bank of K = 4 built from seeded
+    AEs (coarse scoring through ``expert_score``). The 24 fingerprints
+    are chosen by their route on the CPU copy of the bank (relative
+    margin >= 1e-3): 7 per Zamba2 expert, 5 per llama one; prompts of
+    8-64 tokens, 16 new each. Graph serial, graph overlapped, eager
+    serial, eager overlapped. Held: every run's tokens equal the first's;
+    ``host_blocks`` the executor's count (192 / 12, as serve_rwkv's fleet
+    of the same shape);
+    ``decode_attention`` launches = 16 x the llama decode steps (the
+    Zamba2 engines attend through plain ``attention``: none of theirs),
+    no other decode kernel; ``expert_score`` / ``cosine_scores`` once per
+    route chunk; each request's expert and class equal a CPU Router's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ExpertRegistry, MatcherConfig,
+                                  build_matcher, init_ae)
+    from repro_torch.models import build_model
+    from repro_torch.serve import ExpertEngine, Request, RoutedServer
+
+    rng = np.random.default_rng(SEED + 13)
+    names = [n for n, _, _ in ZAMBA_FLEET]
+    aes = [init_ae(torch.Generator().manual_seed(SEED + 90 + i),
+                   device="cpu") for i in range(len(names))]
+    cent_data = [(rng.random((256, 784), dtype=np.float32),
+                  np.arange(256) % 4) for _ in names]
+    m_cpu = build_matcher(aes, names, cent_data, device="cpu")
+    matcher = build_matcher(aes, names, cent_data,
+                            MatcherConfig(use_kernel=True), device=dev)
+    cands, best, margin = routed_candidates(np, torch, m_cpu, rng)
+    picks = []
+    for e, (name, _, n) in enumerate(ZAMBA_FLEET):
+        idx = np.flatnonzero((best == e) & (margin >= 1e-3))
+        if len(idx) < n:
+            raise AssertionError(f"serve_zamba: only {len(idx)} of 4096 "
+                                 f"fingerprints route to {name}")
+        picks += [(name, cands[j], int(rng.integers(8, 65)))
+                  for j in idx[:n]]
+    picks = [picks[i] for i in rng.permutation(len(picks))]
+
+    zcfg = get_config("zamba2_7b")
+    zmodel = build_model(zcfg)
+    ring = shapes["registry"]
+    lmodel = shapes["engine"].model
+    registry, eager = ExpertRegistry(), ExpertRegistry()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    for e, (name, family, _) in enumerate(ZAMBA_FLEET):
+        if family == "hybrid":
+            gen = torch.Generator(device=dev).manual_seed(SEED + 110 + e)
+            model, params = zmodel, zmodel.init(gen, device=dev)
+        else:
+            model, params = lmodel, ring[e - 2].backend.params
+        registry.add(name, ExpertEngine(model, params, max_len=256,
+                                        device=dev))
+        eager.add(name, ExpertEngine(model, params, max_len=256, device=dev,
+                                     capture_decode=False))
+    torch.cuda.synchronize()
+    zamba_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+    engines = [registry[e].backend for e in range(len(registry))]
+    is_zamba = [f == "hybrid" for _, f, _ in ZAMBA_FLEET]
+
+    def requests(uid0):
+        return [Request(uid=uid0 + u, features=f,
+                        prompt=np.random.default_rng(SEED + 200 + u).integers(
+                            0, zcfg.vocab_size, size=n).astype(np.int32),
+                        max_new_tokens=16)
+                for u, (_, f, n) in enumerate(picks)]
+
+    warm_graphs(RoutedServer, matcher, registry, requests(0), dev)
+    want_routes = cpu_routes(np, torch, matcher, requests(0))
+    runs, tokens = {}, {}
+    for capture, executor in RUNS:
+        label = f"serve_zamba {'graph' if capture else 'eager'} {executor}"
+        reg = registry if capture else eager
+        fleet = [reg[e].backend for e in range(len(reg))]
+        server = RoutedServer(matcher, reg, executor=executor, device=dev)
+        before = [e.stats.as_dict() for e in fleet]
+        reqs = requests(0)
+        resps, dt, launches, chunks = timed_serve(torch, ops, server, reqs)
+        chunks = route_chunks(label, chunks, launches)
+        check_routes(label, want_routes, resps)
+        for r in resps:
+            vocab = fleet[names.index(r.expert)].model.cfg.padded_vocab
+            check_responses(label, [r], [reqs[r.uid]], vocab)
+        delta = engine_delta(fleet, before)
+        steps = [e.stats.decode_steps - b["decode_steps"]
+                 for e, b in zip(fleet, before)]
+        z_steps = sum(s_ for s_, z in zip(steps, is_zamba) if z)
+        l_steps = sum(steps) - z_steps
+        check_decode_launches(label, launches, "decode_attention",
+                              lmodel.cfg.n_layers, l_steps)
+        check_blocks(label, delta, HOST_BLOCKS["serve_zamba"][executor])
+        if not z_steps:
+            raise AssertionError(f"{label}: no Zamba2 decode step")
+        n_tok = sum(len(r.tokens) for r in resps)
+        tokens[label] = [(r.expert, r.tokens) for r in resps]
+        runs[label] = {
+            "seconds": dt, "req_per_s": len(resps) / dt,
+            "generated_tok_per_s": n_tok / dt, "tokens": n_tok,
+            "decode_steps_zamba": z_steps, "decode_steps_llama": l_steps,
+            **delta, "launches": launches, "route_chunks": chunks,
+            "routed": {n: sum(r.expert == n for r in resps) for n in names},
+            "prefill_buckets": {n: sorted(e.core._prefill_shapes)
+                                for n, e in zip(names, fleet)}}
+    same_tokens("serve_zamba", tokens,
+                lambda a, b: a[0] == b[0] and np.array_equal(a[1], b[1]))
+    rows = max(max(e.core._graphs, default=0)
+               for e, z in zip(engines, is_zamba) if z)
+    return ({"phase": "serve_zamba", "config": zcfg.name,
+             "experts": {n: f for n, f, _ in ZAMBA_FLEET},
+             "requests": len(picks), "max_new_tokens": 16,
+             "prompt_len": [8, 64], "kv": "ring", "max_len": 256,
+             "zamba_param_gb": zamba_gb, "attn_apps": zmodel.n_attn_apps,
+             "tokens_equal": True, "tokens_equal_graph_eager": True,
+             "routes_equal_cpu": True,
+             "runs": {k.split(" ", 1)[1]: v for k, v in runs.items()},
+             "graphs": graph_stats(engines)},
+            {"cfg": zcfg, "model": zmodel, "params": engines[0].params,
+             "decode_rows": rows})
+
+
+def breakdown_zamba_phase(np, torch, dev, zshapes):
+    """One full-width Zamba2 wave's decode tick at B 8 after a 64-token
+    prefill (ring of 256): eager wall, device time (the step replayed as
+    a CUDA graph), kernels and busy share (``step_times``); the engine's
+    own tick replayed and eager (``engine_step``; no ``decode_attention``
+    launch in it); where the device time goes, each part captured and
+    replayed alone: the tick of the same weights without the shared
+    block (``attn_every`` 0: the 13 applications' share is the
+    difference), one Mamba2 layer (rmsnorm, ``mamba_step``, residual; x
+    81) and its ``w_out`` promoted to f32 (the reference's ``f32 @ bf16``,
+    x 81); the tick against its least bytes: every Mamba2 layer's
+    parameters, the shared block's once per application, ``ln_f`` and the
+    unembedding, the SSM states and conv windows read and written, and
+    the K/V of the live slots of each application."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import rmsnorm
+    from repro_torch.models.mamba2 import mamba_step
+    from repro_torch.models.rwkv6 import _layer_views
+
+    cfg, model, params = zshapes["cfg"], zshapes["model"], zshapes["params"]
+    B, Sb, n = 8, 64, 20
+    rng = np.random.default_rng(SEED + 3)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(B, Sb)).astype(np.int32)).to(dev)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+
+    def tick(m, p):
+        _, cache = m.prefill(p, {"tokens": toks}, capacity=256)
+        fixed = {k: cache[k].clone() for k in ("t", "attn_pos")
+                 if k in cache}
+
+        def step():
+            # positions restart each call; the states evolve (same work)
+            for k, v in fixed.items():
+                cache[k].copy_(v)
+            return m.decode(p, cache, {"token": tok})[0]
+        return step_times(torch, step, n), cache
+
+    timed, cache = tick(model, params)
+    timed.pop("by_name")
+    timed.pop("launches_by_name")
+
+    def nb(t):
+        return t.numel() * t.element_size()
+
+    A = model.n_attn_apps
+    layer_b = sum(nb(t) for t in _leaves(params["layers"]))
+    shared_b = sum(nb(t) for t in _leaves(params["shared"]))
+    head_b = nb(params["unembed"]) + nb(params["ln_f"]) \
+        + B * cfg.d_model * params["embed"].element_size()
+    state_b = 2 * sum(nb(cache[k]) for k in ("ssm", "conv_x", "conv_B",
+                                             "conv_C"))
+    kv_b = 2 * A * B * (Sb + 1) * cfg.n_kv_heads * cfg.dh \
+        * cache["attn_k"].element_size()
+    del cache
+    bound_b = layer_b + A * shared_b + head_b + state_b + kv_b
+
+    # the parts, each captured and replayed alone
+    plain = build_model(cfg.replace(attn_every=0))
+    no_apps, cache = tick(plain, {k: v for k, v in params.items()
+                                  if k != "shared"})
+    lp = _layer_views(params)[0]
+    x = torch.randn((B, 1, cfg.d_model), device=dev).to(
+        params["embed"].dtype)
+    conv = {k: cache[f"conv_{k}"][0] for k in ("x", "B", "C")}
+
+    def mamba_layer():
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        return x + mamba_step(lp, h, cache["ssm"][0], conv, cfg)[0]
+
+    layer = step_times(torch, mamba_layer, n)
+    upcast = step_times(torch, lambda: lp["w_out"].float(), n)
+    del cache
+    full_ms = timed["graph_device_ms_per_step"]
+    parts = {
+        "no_shared_block_device_ms": no_apps["graph_device_ms_per_step"],
+        "shared_block_apps": A,
+        "shared_block_share": 1 - no_apps["graph_device_ms_per_step"]
+        / full_ms,
+        "mamba_layer_device_ms": layer["graph_device_ms_per_step"],
+        "mamba_layers": cfg.n_layers,
+        "mamba_layers_share": cfg.n_layers
+        * layer["graph_device_ms_per_step"] / full_ms,
+        "mamba_layer_kernels": layer["profiler_kernels_per_step"],
+        "w_out_f32_device_ms": upcast["graph_device_ms_per_step"],
+        "w_out_f32_share": cfg.n_layers
+        * upcast["graph_device_ms_per_step"] / full_ms}
+    engine = engine_step(np, torch, dev, model, params, B, Sb, n,
+                         "decode_attention_kernel")
+    if engine["decode_attention_kernel_launches_per_step"]:
+        raise AssertionError("breakdown_zamba: decode_attention launched in "
+                             "a Zamba2 tick")
+    bound_ms = bound_b / HBM_BYTES_PER_S * 1e3
+    return {"phase": "breakdown_zamba", "config": cfg.name, "rows": B,
+            "prompt_len": Sb, "cache_len": 256, **timed, "parts": parts,
+            "engine": engine,
+            "engine_busy_share": engine["graph_kernel_ms_per_step"]
+            / engine["graph_wall_ms_per_step"],
+            "bytes_gb": {"mamba_layers": layer_b / 1e9,
+                         "shared_block_x_apps": A * shared_b / 1e9,
+                         "head": head_b / 1e9, "states_rw": state_b / 1e9,
+                         "kv_live": kv_b / 1e9, "total": bound_b / 1e9},
+            "bound_ms": bound_ms,
+            "graph_tick_over_bound": engine["graph_wall_ms_per_step"]
+            / bound_ms}
+
+
+def launch_serve_phase(np, torch, dev, ops):
+    """``repro_torch.launch.serve.main`` on the card with its default
+    device, twice: the reference launcher's family cycle (RWKV6, Zamba2,
+    smollm, qwen2_72b, and llama in the encoder-decoder and VLM slots, all
+    reduced), then ``--hub-slots 2 --kv paged --trace`` (a reduced llama
+    per dataset stored cold under a temporary directory). Each run trains
+    its bank (``--n-per-dataset 1500 --epochs 30``) and serves 24
+    requests of ``--max-new 8``. Held: every request answered with 8
+    tokens; the family cycle's experts as the reference's rule gives
+    them, and its RWKV6 and dense experts through their decode kernels;
+    the trace file written. The launcher's own lines go to stderr."""
+    import contextlib
+    import tempfile
+
+    from repro_torch.launch import serve as launch_serve
+
+    base = ["--requests", "24", "--n-per-dataset", "1500", "--epochs", "30",
+            "--max-new", "8"]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="launch-serve-") as tmp:
+        trace = os.path.join(tmp, "serve.json")
+        for label, extra in (("family_cycle", []),
+                             ("hub", ["--hub-slots", "2", "--kv", "paged",
+                                      "--trace", trace])):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                got = launch_serve.main(base + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launches()
+            resps = got["responses"]
+            if len(resps) != 24 or any(r.tokens.shape != (8,)
+                                       for r in resps):
+                raise AssertionError(f"launch_serve {label}: bad responses "
+                                     f"{resps}")
+            out[label] = {"wall_s": wall, "serve_s": got["seconds"],
+                          "req_per_s": len(resps) / got["seconds"],
+                          "routing_accuracy": got["accuracy"],
+                          "host_blocks": got["host_blocks"],
+                          "archs": got["archs"], "launches": launches}
+        out["hub"]["trace_bytes"] = os.path.getsize(trace)
+        out["hub"]["trace_jsonl_bytes"] = os.path.getsize(trace + "l")
+    fams = [launch_serve.expert_config(i, n).family
+            for i, n in enumerate(out["family_cycle"]["archs"])]
+    if fams != ["rwkv", "hybrid", "dense", "dense", "dense", "dense"]:
+        raise AssertionError(f"launch_serve: families {fams}")
+    cyc = out["family_cycle"]["launches"]
+    if not cyc["wkv_step"] or not cyc["decode_attention"]:
+        raise AssertionError(f"launch_serve: family cycle launches {cyc}")
+    if not out["hub"]["launches"]["paged_decode_attention"]:
+        raise AssertionError(f"launch_serve: hub launches "
+                             f"{out['hub']['launches']}")
+    return {"phase": "launch_serve", "args": base, **out}
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,6 @@ from .common import ArchConfig
 # families the reference registers that the port does not build yet, and
 # the port slice that brings each
 _LATER = {
-    "hybrid": "A10.3 (Zamba2 hybrid)",
     "encdec": "A10.4 (encoder-decoder)",
 }
 
@@ -107,7 +106,7 @@ def register_family(name: str):
 
 
 def build_model(cfg: ArchConfig) -> BaseModel:
-    from . import dense, rwkv6  # noqa: F401  (registration)
+    from . import dense, rwkv6, zamba  # noqa: F401  (registration)
     if cfg.family in _LATER:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: it arrives with "

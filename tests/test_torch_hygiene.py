@@ -60,6 +60,8 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing():
               "repro_torch.data.synthetic", "repro_torch.data.splits",
               "repro_torch.data.preprocess", "repro_torch.launch.train",
               "repro_torch.core.trainer", "repro_torch.core.mlp_baseline",
+              "repro_torch.launch.serve", "repro_torch.models.zamba",
+              "repro_torch.models.mamba2",
               "repro_torch.serve.hub", "repro_torch.serve.placement",
               "repro_torch.checkpoint.io", "repro_torch.models.moe"):
         assert m in loaded, m
@@ -125,6 +127,14 @@ def test_entry_points_refuse_without_cuda(no_cuda):
     assert [i for i, _ in hist] == [0, 1]
     hist = launch_train.main(launch + ["--device", "cpu"])
     assert [i for i, _ in hist] == [0, 1]
+    # the serving launcher
+    from repro_torch.launch import serve as launch_serve
+    serve_args = ["--requests", "2", "--n-per-dataset", "32", "--epochs",
+                  "1", "--max-new", "1"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(serve_args)
+    out = launch_serve.main(serve_args + ["--device", "cpu"])
+    assert [r.tokens.shape for r in out["responses"]] == [(1,), (1,)]
     srv = tserve.RoutedServer(matcher, reg, device="cpu")
     out = srv.serve([tserve.Request(0, np.zeros(784, np.float32),
                                     np.arange(5, dtype=np.int32), 3)])
