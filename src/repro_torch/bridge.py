@@ -1,9 +1,11 @@
 """Weight bridge: reference parameter pytrees (as numpy) <-> port tensors.
 
 The reference package's parameters come out of ``jax.device_get`` as
-nested dicts of numpy arrays with the layouts the port keeps: DecoderLM
-params (``embed``, ``layers/*`` stacked on a leading ``L`` axis,
-``ln_f``), the AE bank's ``(bank_params, bank_states)`` stacked on a
+nested dicts of numpy arrays with the layouts the port keeps: every
+model family's params under the reference's names (``DecoderLM``'s
+``embed``, ``layers/*`` stacked on a leading ``L`` axis, ``ln_f``; RWKV6's
+and Zamba2's; ``EncDecLM``'s ``enc_layers/*`` and ``dec_layers/*``, each
+stacked on its own ``L``, ``ln_enc``, ``ln_f``, ``unembed``), the AE bank's ``(bank_params, bank_states)`` stacked on a
 leading ``K`` axis, and the matcher's ``centroids`` / ``centroid_mask``.
 ``to_torch`` maps any such tree onto tensors on a device; ``to_numpy``
 maps back; ``copy_to_torch`` copies such a tree into tensors that already

@@ -4,7 +4,7 @@
 has ``.reduced()`` for CPU smoke tests. ``ALL_ARCHS`` lists the assigned
 pool; the paper's own expert-matcher config lives in repro_torch.core.
 The modules are the port's own copies of the reference configs (pure
-data); every family but ``encdec`` builds in this package so far.
+data); every family builds in this package.
 """
 from __future__ import annotations
 

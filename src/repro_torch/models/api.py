@@ -16,12 +16,6 @@ from __future__ import annotations
 
 from .common import ArchConfig
 
-# families the reference registers that the port does not build yet, and
-# the port slice that brings each
-_LATER = {
-    "encdec": "A10.4 (encoder-decoder)",
-}
-
 
 class BaseModel:
     def __init__(self, cfg: ArchConfig):
@@ -106,11 +100,7 @@ def register_family(name: str):
 
 
 def build_model(cfg: ArchConfig) -> BaseModel:
-    from . import dense, rwkv6, zamba  # noqa: F401  (registration)
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: it arrives with "
-            f"port slice {_LATER[cfg.family]}")
+    from . import dense, encdec, rwkv6, zamba  # noqa: F401  (registration)
     if cfg.family not in _REGISTRY:
         raise ValueError(f"unknown family {cfg.family!r}")
     return _REGISTRY[cfg.family](cfg)

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -184,6 +184,21 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
 def embed_init(gen: torch.Generator, shape: Sequence[int], dtype
                ) -> torch.Tensor:
     return (_randn(gen, shape) * 0.02).to(dtype)
+
+
+def stack_views(stack: Dict) -> List[Dict]:
+    """Per-layer views of an L-stacked layer tree with an ``ln1`` leaf
+    (nested dicts, as ``mlp``, ``moe`` or ``attn``, keep their nesting)."""
+    def unbind(node):
+        return {k: unbind(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in node.items()}
+
+    def pick(node, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i]
+                for k, v in node.items()}
+
+    per = unbind(stack)
+    return [pick(per, i) for i in range(len(per["ln1"]))]
 
 
 # ---------------------------------------------------------------------------

@@ -43,7 +43,7 @@ reference's does.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -56,7 +56,7 @@ from .attention import (attention, cache_prefill, init_kv_cache,
                         last_writer, paged_append, paged_append_rows,
                         paged_gather, paged_scatter_pages, suffix_attend)
 from .common import (ArchConfig, apply_rope, dense_init, dt, embed_init,
-                     init_device, rmsnorm, softmax_xent)
+                     init_device, rmsnorm, softmax_xent, stack_views)
 from .moe import init_moe, moe_ffn
 
 
@@ -86,21 +86,6 @@ def _init_layers(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict:
             "w_down": dense_init(gen, (L, Fd, D), dtype),
         }
     return p
-
-
-def _layer_views(params) -> List[Dict]:
-    """Per-layer views of the L-stacked layer params (nested dicts, as
-    ``mlp`` and ``moe``, keep their nesting)."""
-    def unbind(node):
-        return {k: unbind(v) if isinstance(v, dict) else v.unbind(0)
-                for k, v in node.items()}
-
-    def pick(node, i):
-        return {k: pick(v, i) if isinstance(v, dict) else v[i]
-                for k, v in node.items()}
-
-    per = unbind(params["layers"])
-    return [pick(per, i) for i in range(len(per["wq"]))]
 
 
 def _qkv(h, lp, cfg: ArchConfig, positions):
@@ -257,7 +242,7 @@ class DecoderLM(BaseModel):
             return x, a
 
         aux = x.new_zeros((), dtype=torch.float32)
-        for lp in _layer_views(params):
+        for lp in stack_views(params["layers"]):
             x, a = (checkpoint(layer, x, lp, use_reentrant=False)
                     if cfg.remat else layer(x, lp))
             if a is not None:
@@ -291,7 +276,7 @@ class DecoderLM(BaseModel):
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         kvs = []
-        for lp in _layer_views(params):
+        for lp in stack_views(params["layers"]):
             x, kv, _ = _layer_full(x, lp, cfg, positions)
             kvs.append(kv)
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
@@ -318,7 +303,7 @@ class DecoderLM(BaseModel):
         C = cache["k"].shape[2]
         slot = (t % C).reshape(1).long()
         kv_pos = cache["pos"].index_copy(0, slot, t.reshape(1))
-        for i, lp in enumerate(_layer_views(params)):
+        for i, lp in enumerate(stack_views(params["layers"])):
             ck, cv = cache["k"][i], cache["v"][i]
 
             def write_attend(q, k1, v1, ck=ck, cv=cv):
@@ -372,7 +357,7 @@ class DecoderLM(BaseModel):
         kv_pos = pos.scatter(1, slots, offs)
         last = params["embed"].shape[0] - 1
         x = self._embed(params, {"tokens": tokens.clamp(0, last)})
-        for i, lp in enumerate(_layer_views(params)):
+        for i, lp in enumerate(stack_views(params["layers"])):
             ck, cv = cache["k"][i], cache["v"][i]
 
             def write(k1, v1, ck=ck, cv=cv):
@@ -467,7 +452,7 @@ class DecoderLM(BaseModel):
         positions = torch.arange(offset, offset + Ssuf, dtype=torch.int32,
                                  device=x.device)
         kvs = []
-        for i, lp in enumerate(_layer_views(params)):
+        for i, lp in enumerate(stack_views(params["layers"])):
             # the suffix's own pages are written after every layer ran,
             # so each layer reads the prefix as the call found it
             pk, pv = paged_gather(pool["k"][:, i], pool["v"][:, i],
@@ -496,7 +481,7 @@ class DecoderLM(BaseModel):
         off = slot[0] % page
         # padding rows meet on the trash page: the last one's write lands
         rows = last_writer(tbl_col, pool["k"].shape[0])
-        for i, lp in enumerate(_layer_views(params)):
+        for i, lp in enumerate(stack_views(params["layers"])):
             kp, vp = pool["k"][:, i], pool["v"][:, i]
 
             def write_attend(q, k1, v1, kp=kp, vp=vp):

@@ -20,7 +20,7 @@ the family serves on the ring layout only.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +29,8 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.wkv_step import wkv_step, wkv_step_plain
 from .api import BaseModel, register_family
 from .common import (ArchConfig, dense_init, dt, embed_init,
-                     groupnorm_heads, init_device, rmsnorm, softmax_xent)
+                     groupnorm_heads, init_device, rmsnorm, softmax_xent,
+                     stack_views)
 
 N_MIX = 5  # w, k, v, r, g ddlerp branches
 
@@ -69,13 +70,6 @@ def _init_layers(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict:
         "w_ch_v": dense_init(gen, (L, Fd, D), dtype),
         "w_ch_r": dense_init(gen, (L, D, D), dtype),
     }
-
-
-def _layer_views(params) -> List[Dict]:
-    """Per-layer views of the L-stacked layer params."""
-    flat = {k: v.unbind(0) for k, v in params["layers"].items()}
-    return [{k: v[i] for k, v in flat.items()}
-            for i in range(len(flat["ln1"]))]
 
 
 def _shift(x, x_prev):
@@ -261,7 +255,7 @@ class RWKV6(BaseModel):
         return 1  # constant-size recurrent state
 
     def _run(self, params, x, cache, mode):
-        for i, lp in enumerate(_layer_views(params)):
+        for i, lp in enumerate(stack_views(params["layers"])):
             state = {k: cache[k][i] for k in ("S", "x_tm", "x_cm")}
             x = _layer(lp, x, self.cfg, state, mode)
         return rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
@@ -305,7 +299,7 @@ class RWKV6(BaseModel):
         def layer(x, lp):
             return _layer_out(lp, x, cfg, zero, "chunked")[0]
 
-        for lp in _layer_views(params):
+        for lp in stack_views(params["layers"]):
             x = (checkpoint(layer, x, lp, use_reentrant=False) if cfg.remat
                  else layer(x, lp))
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)

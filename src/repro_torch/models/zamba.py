@@ -32,11 +32,10 @@ from ..tree import tree_map
 from .api import BaseModel, register_family
 from .attention import attention, cache_prefill, init_kv_cache
 from .common import (dense_init, dt, embed_init, init_device, rmsnorm,
-                     softmax_xent)
+                     softmax_xent, stack_views)
 from .dense import _init_layers as init_attn_layers
 from .dense import _layer_decode, _layer_full
 from .mamba2 import init_mamba_layer, mamba_seq, mamba_step
-from .rwkv6 import _layer_views
 
 
 @register_family("hybrid")
@@ -101,7 +100,7 @@ class Zamba2(BaseModel):
                 x, kv, _ = _layer_full(x, shared, cfg, positions)
             return x, kv, s_fin, h
 
-        for i, lp in enumerate(_layer_views(params)):
+        for i, lp in enumerate(stack_views(params["layers"])):
             if collect:
                 x, kv, s_fin, h = layer(x, lp, i in apps)
                 got["ssm"].append(s_fin)
@@ -197,7 +196,7 @@ class Zamba2(BaseModel):
             slot = (t % C).reshape(1).long()
             kv_pos = cache["attn_pos"]
             kv_pos.index_copy_(0, slot, t.reshape(1))
-        for i, lp in enumerate(_layer_views(params)):
+        for i, lp in enumerate(stack_views(params["layers"])):
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
             o, _, _ = mamba_step(lp, h, cache["ssm"][i], {
                 "x": cache["conv_x"][i], "B": cache["conv_B"][i],

@@ -138,8 +138,8 @@ def test_init_layout_matches_reference():
 
 
 def test_other_families_name_their_slice():
-    with pytest.raises(NotImplementedError, match="slice A10.4"):
-        tbuild(tget("seamless_m4t_large_v2").reduced())
+    assert tbuild(tget("seamless_m4t_large_v2").reduced()).cfg.family == \
+        "encdec"
     assert tbuild(tget("zamba2_7b").reduced()).cfg.family == "hybrid"
     for arch in ("olmoe_1b_7b", "mixtral_8x22b", "internvl2_26b"):
         assert tbuild(tget(arch).reduced()).cfg.family in ("moe", "vlm")

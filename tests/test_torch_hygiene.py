@@ -63,7 +63,10 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing():
               "repro_torch.launch.serve", "repro_torch.models.zamba",
               "repro_torch.models.mamba2",
               "repro_torch.serve.hub", "repro_torch.serve.placement",
-              "repro_torch.checkpoint.io", "repro_torch.models.moe"):
+              "repro_torch.checkpoint.io", "repro_torch.models.moe",
+              "repro_torch.models.encdec", "repro_torch.examples.quickstart",
+              "repro_torch.examples.serve_routing",
+              "repro_torch.examples.train_expert"):
         assert m in loaded, m
     assert not got["lib"], "a kernel library was built at import time"
 

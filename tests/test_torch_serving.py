@@ -153,9 +153,8 @@ def test_generate_does_not_steal_scheduler_rows():
 
 def test_later_slice_options_raise():
     """Banked placement and the hub are ported (A9); what stays out
-    raises: a device mesh (not part of the single-GPU port) and the A10
-    family not ported yet (the encoder-decoder, A10.4). Zamba2 (A10.3)
-    builds."""
+    raises: a device mesh (not part of the single-GPU port). Every A10
+    family builds: Zamba2 (A10.3) and the encoder-decoder (A10.4)."""
     tmod = tbuild(tget("smollm_135m").reduced(name="later"))
     reg = tcore.ExpertRegistry()
     reg.add("a", tserve.ExpertEngine(tmod, tmod.init(0, device="cpu"),
@@ -164,7 +163,7 @@ def test_later_slice_options_raise():
         tserve.plan_placement(reg, mesh=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         tserve.ExpertHub(tmod, n_slots=1, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10.4"):
-        tbuild(tget("seamless_m4t_large_v2").reduced(name="later-encdec"))
+    assert tbuild(tget("seamless_m4t_large_v2").reduced(
+        name="now-encdec")).cfg.family == "encdec"
     assert tbuild(tget("zamba2_7b").reduced(
         name="now-hybrid")).cfg.family == "hybrid"
