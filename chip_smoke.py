@@ -20,8 +20,10 @@ Phases, each printing one JSON line:
    replay of its captured verify graph): its tokens must equal the CPU's
    plain-decode tokens. Then four reduced f32 experts serve pre-routed
    traffic as a bank (``plan_placement``) and through a 2-slot
-   ``ExpertHub`` staged from host memory, on the card and on the CPU:
-   tokens and the hub's counters must be equal.
+   ``ExpertHub`` staged from host memory, on the card and on the CPU,
+   and on the card again over a 2-position expert mesh
+   (``ExpertMesh((cuda:0,) * 2)``): tokens, the hub's counters and its
+   victims must be equal.
 2a. encdec_reference — a reduced f32 ``seamless_m4t_large_v2`` (2 + 2
    layers, GQA 4 over 2) on the card and on the CPU from the same
    weights, plain and with the encoder and the prefill's cross-attention
@@ -97,6 +99,16 @@ Phases, each printing one JSON line:
    n_layers times a bank step (a bank steps every member, rows or not).
    Then a paged bank on the serve_paged phase's cohort traffic (B4 only,
    pool books balanced) and the bank's own tick.
+7a. serve_mesh — the same six experts as one E = 6 bank over a 1-D
+   expert mesh of three positions on the card (``ExpertMesh((cuda:0,) *
+   3)``: two members a position, each position with its own graphs and
+   state), serve_banked's 24 requests graph / eager x serial /
+   overlapped: rows equal serve_banked's or reported near ties,
+   ``host_blocks`` equal serve_banked's, ``decode_attention`` E x
+   n_layers a bank step, every position capturing the same buckets in
+   the warm-up and none after; seconds and the bank tick beside
+   serve_banked's, with the card's name and power limit. With two or
+   more cards it also serves over every card (``make_expert_mesh()``).
 8. serve_hub — an ``ExpertHub`` of 2 slots over a catalog of the same
    six experts saved ``cold`` into a store under a temporary directory
    (removed at the end), behind the serve phase's matcher: ``warmup``,
@@ -263,7 +275,8 @@ Then a summary line ``{"kernels": [...], "launch_floor_ms": ...}`` (rows
 3-5 with ``ms_in_graph_step``, their time per launch inside the
 engine's replayed step, row 3 also ``ms_in_moe_graph_step``; rows 1-4
 with ``launches_banked``, ``launches_hub``, ``launches_moe`` and
-``launches_zamba``, rows 1-2 with ``launches_train_bank``, every row
+``launches_zamba``, rows 1-3 with ``launches_mesh``, rows 1-2 with
+``launches_train_bank``, every row
 with ``launches_examples`` and ``launches_encdec`` (0: the family runs
 no kernel);
 ``script_wall_s`` from the start of ``main``), the
@@ -335,6 +348,8 @@ def main() -> int:
     emit(serve_spec_phase(np, torch, dev, ops, shapes, dense["engine"]))
     banked, fleet = serve_banked_phase(np, torch, dev, ops, shapes)
     emit(banked)
+    mesh = serve_mesh_phase(np, torch, dev, ops, shapes, banked, smi)
+    emit(mesh)
     hub = serve_hub_phase(np, torch, dev, ops, shapes, fleet, {
         "bank": banked["bank_tick"],
         "single": dense["engine"]["graph_wall_ms_per_step"]})
@@ -393,6 +408,7 @@ def main() -> int:
                 else moe_tick["engine"]["decode_attention_kernel"
                                         "_us_per_launch"] / 1e3)
         for key, phase in (("launches_banked", banked),
+                           ("launches_mesh", mesh),
                            ("launches_hub", hub)):
             if k["name"] in phase[key]:
                 k[key] = phase[key][k["name"]]
@@ -490,9 +506,13 @@ def bank_hub_reference(np, torch, dev, model):
     four; prompts of 4-40 tokens, 8 new): once as a bank of four
     (``plan_placement``, a router-less scheduler), once through a hub of
     2 slots whose experts are staged from host memory (no worker: the
-    same installs and evictions on both devices). Card tokens must equal
-    the CPU's exactly, the hub's counters too."""
+    same installs and evictions on both devices). On the card both run
+    twice: unsharded, then over a 2-position expert mesh on the card
+    (``ExpertMesh((cuda:0,) * 2)``: two members, one slot, a position).
+    Card tokens must equal the CPU's exactly, the hub's counters and
+    victims too."""
     from repro_torch.core import ExpertRegistry
+    from repro_torch.launch.mesh import ExpertMesh
     from repro_torch.serve import (ExpertEngine, ExpertHub, Request,
                                    RoutedServer, Scheduler, SchedulerConfig,
                                    plan_placement)
@@ -507,33 +527,45 @@ def bank_hub_reference(np, torch, dev, model):
                     max_new_tokens=8, expert=int(e))
             for u, e in enumerate(experts)]
     out = {}
-    for key, where in (("cpu", "cpu"), ("card", dev)):
+    mesh = ExpertMesh((torch.device("cuda", 0),) * 2)
+    for key, where, m in (("cpu", "cpu", None), ("card", dev, None),
+                          ("card_mesh", dev, mesh)):
         reg = ExpertRegistry()
         for i, params in enumerate(cpu):
             reg.add(f"x{i}", ExpertEngine(
                 model, params if where == "cpu" else _tree(
                     params, lambda t: t.to(dev)), max_len=64, device=where))
+        plan = plan_placement(reg, mesh=m)
+        if m is not None and (plan.shards[0].devices != mesh.devices
+                              or plan.shards[0].bank.core.per_pos != 2):
+            raise AssertionError(f"reference: mesh plan {plan.describe()}")
         sched = Scheduler(None, reg, SchedulerConfig(max_batch=4),
-                          placement=plan_placement(reg))
+                          placement=plan)
         sched.submit(reqs)
         bank = {r.uid: r.tokens for r in sched.drain()}
-        hub = ExpertHub(model, n_slots=2, max_len=64, device=where)
+        hub = ExpertHub(model, n_slots=2, max_len=64, mesh=m, device=where)
+        victims = []
+        evict = hub._evict_locked
+        hub._evict_locked = lambda e: (victims.append(e), evict(e))[1]
         for i, params in enumerate(cpu):
             hub.add_expert(f"x{i}", params)
         with RoutedServer(None, hub.build_registry(), max_batch=4, hub=hub,
                           check_every=1, device=where) as srv:
             served = {r.uid: r.tokens for r in srv.serve(reqs)}
-        out[key] = (bank, served, {k: hub.stats.as_dict()[k] for k in (
-            "loads", "evictions", "resident_misses")})
-    for i, label in enumerate(("bank", "hub")):
-        if not all(np.array_equal(out["card"][i][u], out["cpu"][i][u])
-                   for u in out["cpu"][i]):
-            raise AssertionError(f"reference: {label} tokens differ between "
-                                 "the card and the CPU")
-    if out["card"][2] != out["cpu"][2] or not out["card"][2]["evictions"]:
-        raise AssertionError(f"reference: hub counters {out}")
+        out[key] = (bank, served, {**{k: hub.stats.as_dict()[k] for k in (
+            "loads", "evictions", "resident_misses")}, "victims": victims})
+    for key in ("card", "card_mesh"):
+        for i, label in enumerate(("bank", "hub")):
+            if not all(np.array_equal(out[key][i][u], out["cpu"][i][u])
+                       for u in out["cpu"][i]):
+                raise AssertionError(f"reference: {key} {label} tokens "
+                                     "differ from the CPU's")
+        if out[key][2] != out["cpu"][2] or not out[key][2]["evictions"]:
+            raise AssertionError(f"reference: {key} hub counters {out}")
     return {"experts": 4, "requests": len(reqs), "new_tokens": 8,
             "hub_slots": 2, "tokens_equal_cpu": True,
+            "mesh_positions": len(mesh.devices),
+            "mesh_tokens_equal_cpu": True,
             "hub_counters": out["card"][2]}
 
 
@@ -1355,7 +1387,8 @@ def serve_paged_phase(np, torch, dev, ops, shapes):
                                      f"{again}")
             n_pages = reg[0].backend.core.pool.n_pages
             pool_bytes = sum(t.numel() * t.element_size()
-                             for t in reg[0].backend.core.kv_pool.values())
+                             for part in reg[0].backend.core.kv_pool
+                             for t in part.values())
         if capture:
             graphs[executor] = graph_stats(
                 [reg[e].backend for e in range(len(reg))])
@@ -1924,9 +1957,10 @@ def serve_spec_phase(np, torch, dev, ops, shapes, plain_engine):
 # ---------------------------------------------------------------------------
 
 
-def bank_fleet(dev, model, ring, capture=True, **kw):
+def bank_fleet(dev, model, ring, capture=True, mesh=None, **kw):
     """Six engines on the serve phase's weight tensors, placed by
-    ``plan_placement``: (registry, plan) holding one bank of all six."""
+    ``plan_placement`` (over ``mesh`` when given): (registry, plan)
+    holding one bank of all six."""
     from repro_torch.core import ExpertRegistry
     from repro_torch.serve import ExpertEngine, plan_placement
     reg = ExpertRegistry()
@@ -1934,7 +1968,7 @@ def bank_fleet(dev, model, ring, capture=True, **kw):
         reg.add(ring[e].name, ExpertEngine(
             model, ring[e].backend.params, max_len=256, device=dev,
             capture_decode=capture, **kw))
-    plan = plan_placement(reg)
+    plan = plan_placement(reg, mesh=mesh)
     if [s.experts for s in plan.shards if s.banked] != \
             [tuple(range(len(ring)))]:
         raise AssertionError(f"plan_placement: {plan.describe()}")
@@ -2081,6 +2115,7 @@ def serve_banked_phase(np, torch, dev, ops, shapes):
             graphs["decode_compiles"] > len(bank.batch_buckets):
         raise AssertionError(f"serve_banked graphs: {graphs}")
     same, ties, bad = tie_rows(np, torch, dev, bank_resps, ref, waves)
+    shapes["banked_resps"] = bank_resps        # serve_mesh's reference
     del fleets[False]
 
     # one paged bank run on the serve_paged phase's cohort traffic
@@ -2147,6 +2182,143 @@ def serve_banked_phase(np, torch, dev, ops, shapes):
         raise AssertionError(f"serve_banked: rows differ from the per-engine "
                              f"fleet's other than at a near tie: {bad}")
     return out, fleets[True]
+
+
+# ---------------------------------------------------------------------------
+# serve_mesh: the bank of six split over a 1-D expert mesh
+# ---------------------------------------------------------------------------
+
+#: positions of serve_mesh's mesh on the one card (two members each)
+MESH_POSITIONS = 3
+
+
+def serve_mesh_phase(np, torch, dev, ops, shapes, banked, smi):
+    """serve_banked's six full-width ``llama3_2_1b`` experts (the serve
+    phase's weight tensors, depth not cut) as one E = 6 bank placed by
+    ``plan_placement`` over ``ExpertMesh((cuda:0,) * 3)``: positions of
+    two members, each with its own graphs and state on the card, the
+    port's counterpart of the reference's forced host device count.
+    serve_banked's 24 requests: graph serial, graph overlapped, eager
+    serial, eager overlapped. Held: every row equal to serve_banked's
+    unsharded bank's (graph serial) or differing first at a reported near
+    tie; ``host_blocks`` equal to serve_banked's for each executor;
+    ``decode_attention`` E x n_layers a bank step; routes equal the
+    CPU's; each position captures the same decode buckets in the warm-up
+    and nothing after. Printed beside serve_banked's: serve seconds and
+    the bank's own tick, with the card's name and power limit. With two
+    or more cards the bank also serves over ``make_expert_mesh()`` (every
+    card), each card's allocated bytes printed; on one card the phase
+    says that run waits for such a machine."""
+    from repro_torch.launch.mesh import ExpertMesh, make_expert_mesh
+    from repro_torch.serve import RoutedServer
+
+    cfg, matcher, ring = shapes["cfg"], shapes["matcher"], shapes["registry"]
+    model = shapes["engine"].model
+    reqs, ref = shapes["requests"], shapes["banked_resps"]
+    E, L = len(ring), cfg.n_layers
+    want_routes = cpu_routes(np, torch, matcher, reqs)
+    mesh = ExpertMesh((torch.device("cuda", 0),) * MESH_POSITIONS)
+    fleets = {c: bank_fleet(dev, model, ring, c, mesh=mesh)
+              for c in (True, False)}
+    for reg, plan in fleets.values():
+        core = plan.shards[0].bank.core
+        if plan.shards[0].devices != mesh.devices or \
+                core.per_pos != E // MESH_POSITIONS or any(
+                    p["embed"].data_ptr() !=
+                    ring[e].backend.params["embed"].data_ptr()
+                    for e, p in enumerate(core.params)):
+            raise AssertionError(f"serve_mesh plan: {plan.describe()}")
+    waves = {}
+    bank = fleets[True][1].shards[0].bank
+    warm_graphs(RoutedServer, matcher, fleets[True][0], reqs, dev,
+                placement=fleets[True][1])
+    warm = graph_stats([bank])
+    counts = {len(gs) for gs in bank.core._graphs.values()}
+    if counts != {MESH_POSITIONS} or warm["captured"] != \
+            warm["decode_compiles"]:
+        raise AssertionError(f"serve_mesh warm-up graphs: {warm}")
+    runs, tokens = {True: {}, False: {}}, {}
+    for capture, executor in RUNS:
+        label = f"serve_mesh {'graph' if capture else 'eager'} {executor}"
+        reg, plan = fleets[capture]
+        b = plan.shards[0].bank
+        first = capture and executor == "serial"
+        if first:
+            _record_waves(b.core, waves)
+        server = RoutedServer(matcher, reg, placement=plan,
+                              executor=executor, device=dev)
+        before = b.stats.as_dict()
+        resps, dt, launches, chunks = timed_serve(torch, ops, server, reqs)
+        if first:
+            del b.core.admit_wave
+        chunks = route_chunks(label, chunks, launches)
+        check_routes(label, want_routes, resps)
+        check_responses(label, resps, reqs, cfg.padded_vocab)
+        delta = engine_delta([b], [before])
+        check_decode_launches(label, launches, "decode_attention", E * L,
+                              delta["decode_steps"])
+        want_blocks = banked["serial" if executor == "serial"
+                             else "overlapped"]["host_blocks"]
+        if delta["host_blocks"] != want_blocks or delta["decode_captured"]:
+            raise AssertionError(f"{label}: {delta}, serve_banked blocked "
+                                 f"{want_blocks} times")
+        tokens[label] = resps
+        runs[capture][executor] = {
+            "seconds": dt, "req_per_s": len(resps) / dt,
+            "generated_tok_per_s": sum(len(r.tokens) for r in resps) / dt,
+            "banked_seconds": (banked if capture else banked["eager"])[
+                executor]["seconds"],
+            **delta, "launches": launches, "route_chunks": chunks}
+    rows = {}
+    for label, resps in tokens.items():
+        same, ties, bad = tie_rows(np, torch, dev, resps, ref, waves)
+        rows[label] = {"rows_equal_banked": same, "rows_near_tie": ties}
+        if bad:
+            raise AssertionError(f"{label}: rows differ from serve_banked's "
+                                 f"other than at a near tie: {bad}")
+    del fleets[False]
+    tick = bank_tick(np, torch, bank, shapes["decode_rows"], 64, 20)
+    out = {"phase": "serve_mesh", "config": cfg.name, "gpu": smi,
+           "experts": E, "positions": MESH_POSITIONS,
+           "mesh": [str(d) for d in mesh.devices],
+           "members_per_position": E // MESH_POSITIONS,
+           "requests": len(reqs), "kv": "ring", "max_len": 256,
+           "tokens_equal_banked_or_near_tie": True,
+           "routes_equal_cpu": True, "rows": rows,
+           "serial": runs[True]["serial"],
+           "overlapped": runs[True]["overlapped"], "eager": runs[False],
+           "graphs": graph_stats([bank]),
+           "graphs_per_bucket": MESH_POSITIONS,
+           "bank_tick": tick, "banked_bank_tick": banked["bank_tick"],
+           "launches_mesh": {k: runs[True]["serial"]["launches"][k]
+                             for k in RING_PATH},
+           "distinct_devices": torch.cuda.device_count()}
+    del fleets, bank
+    if torch.cuda.device_count() < 2:
+        out["distinct_devices_run"] = (
+            "not run: one card visible; the bank over distinct cards "
+            "waits for a machine with several")
+        return out
+    # every visible card: members move to their cards (copies)
+    cards = make_expert_mesh()
+    reg, plan = bank_fleet(dev, model, ring, True, mesh=cards)
+    warm_graphs(RoutedServer, matcher, reg, reqs, dev, placement=plan)
+    multi = {}
+    for executor in ("serial", "overlapped"):
+        resps, dt, launches, _ = timed_serve(
+            torch, ops, RoutedServer(matcher, reg, placement=plan,
+                                     executor=executor, device=dev), reqs)
+        same, ties, bad = tie_rows(np, torch, dev, resps, ref, waves)
+        if bad:
+            raise AssertionError(f"serve_mesh cards {executor}: rows "
+                                 f"differ from serve_banked's: {bad}")
+        multi[executor] = {"seconds": dt, "rows_equal_banked": same,
+                           "rows_near_tie": ties}
+    out["distinct_devices_run"] = {
+        "devices": [str(d) for d in plan.shards[0].devices], **multi,
+        "allocated_bytes": [torch.cuda.memory_allocated(i) for i in
+                            range(torch.cuda.device_count())]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5070,7 +5242,8 @@ def _record_decode(core, seen):
 
     def wrapped(w):
         tok = step(w)
-        seen.append((w.tok.shape[1], w.pos.clone(), w.t.clone()))
+        # one mesh position: the wave's (E, ...) tensors are its [0]
+        seen.append((w.tok[0].shape[1], w.pos[0].clone(), w.t[0].clone()))
         return tok
     return wrapped
 

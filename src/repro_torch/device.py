@@ -7,6 +7,7 @@ machine without a card raises.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
@@ -29,3 +30,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def on_device(dev: torch.device):
+    """Make ``dev`` the current CUDA device for the block (nothing on the
+    CPU): a ctypes launch and a graph capture run on the current one."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()

@@ -12,9 +12,10 @@ classes through ``cosine_fine``; the llama experts decode through
 plain versions on the CPU).
 
 ``--banked`` banks each bankable architecture's two experts into one
-``BankedEngine`` (``plan_placement``; the port runs on one card, so no
-mesh); capacity-dispatch MoE experts (mixtral) stay singleton shards
-because their outputs depend on batch padding.
+``BankedEngine`` (``plan_placement``), sharded over a mesh ``expert``
+axis (``make_expert_mesh``: every visible card) when more than one card
+is visible; capacity-dispatch MoE experts (mixtral) stay singleton
+shards because their outputs depend on batch padding.
 
 ``--executor`` picks the dispatch executor: ``overlapped`` (default)
 enqueues every shard's prefill and decode tick before blocking on
@@ -56,6 +57,7 @@ from ..core import (ExpertRegistry, MatcherConfig, build_matcher,
                     train_bank)
 from ..data import load_benchmark
 from ..device import resolve_device
+from ..launch.mesh import make_expert_mesh
 from ..models import build_model
 from ..serve import (ExpertEngine, ExpertHub, Request, RoutedServer,
                      plan_placement)
@@ -310,9 +312,10 @@ def main(argv=None, *, aes=None, init_expert=None) -> dict:
 
     plan = None
     if args.banked:
-        plan = plan_placement(registry)
-        print(f"[{time.time()-t0:5.1f}s] placement (one {dev.type} "
-              f"device):")
+        mesh = make_expert_mesh(dev)
+        plan = plan_placement(registry, mesh=mesh)
+        print(f"[{time.time()-t0:5.1f}s] placement "
+              f"({mesh.shape['expert']} {dev.type} device(s)):")
         for line in plan.describe(registry.names).splitlines():
             print(f"    {line}")
     with RoutedServer(matcher, registry, max_batch=8, placement=plan,

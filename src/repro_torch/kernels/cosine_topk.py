@@ -107,11 +107,13 @@ def _launch(fn: str, z: torch.Tensor, centroids: torch.Tensor,
     out = torch.empty((R, M), dtype=torch.float32, device=z.device)
     cls = (torch.empty((R,), dtype=torch.int64, device=z.device)
            if with_cls else None)
-    rc = library().cosine_fine_f32(
-        z.data_ptr(), centroids.data_ptr(), mask.data_ptr(),
-        None if expert is None else expert.data_ptr(), out.data_ptr(),
-        None if cls is None else cls.data_ptr(), R, K, M, h, EPS,
-        torch.cuda.current_stream(z.device).cuda_stream)
+    # the library launches on the current device: the tensors' one
+    with torch.cuda.device(z.device):
+        rc = library().cosine_fine_f32(
+            z.data_ptr(), centroids.data_ptr(), mask.data_ptr(),
+            None if expert is None else expert.data_ptr(), out.data_ptr(),
+            None if cls is None else cls.data_ptr(), R, K, M, h, EPS,
+            torch.cuda.current_stream(z.device).cuda_stream)
     check(rc, fn)
     cosine_scores.launches += 1
     return out, cls

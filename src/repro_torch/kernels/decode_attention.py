@@ -112,12 +112,14 @@ def decode_attention(q, k, v, q_pos, kv_pos, *, window: int = 0
     check_aligned("decode_attention", q=q, k=k, v=v)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
     out = torch.empty_like(q)
-    rc = library().decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        kv_pos.data_ptr(), out.data_ptr(), B, H, KV, S, dh, int(window),
-        scale, int(q.dtype == torch.bfloat16),
-        decode_split(B, KV, S, sm_count(q.device.index)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    # the library launches on the current device: the tensors' one
+    with torch.cuda.device(q.device):
+        rc = library().decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            kv_pos.data_ptr(), out.data_ptr(), B, H, KV, S, dh, int(window),
+            scale, int(q.dtype == torch.bfloat16),
+            decode_split(B, KV, S, sm_count(q.device.index)),
+            torch.cuda.current_stream(q.device).cuda_stream)
     check(rc, "decode_attention")
     decode_attention.launches += 1
     return out

@@ -148,10 +148,12 @@ def expert_score_folded(folded: Dict[str, torch.Tensor], x: torch.Tensor
     n, rows = expert_split(
         B, D, H, K, lambda n, r: max_clusters(x.device.index, D, H, n, r))
     out = torch.empty((B, K), dtype=torch.float32, device=x.device)
-    rc = library().expert_score_f32(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), B, D, H, K, n, rows,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    # the library launches on the current device: the tensors' one
+    with torch.cuda.device(x.device):
+        rc = library().expert_score_f32(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), out.data_ptr(), B, D, H, K, n, rows,
+            torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, "expert_score")
     expert_score_folded.launches += 1
     return out

@@ -125,13 +125,15 @@ def paged_decode_attention(q, k_pages, v_pages, table, q_pos, kv_pos, *,
                          f"16 bytes")
     scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
     out = torch.empty_like(q)
-    rc = library().paged_decode_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        table.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-        out.data_ptr(), B, H, KV, n_lp, page, page_stride,
-        dh, int(window), scale, int(q.dtype == torch.bfloat16),
-        decode_split(B, KV, n_lp * page, sm_count(q.device.index)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    # the library launches on the current device: the tensors' one
+    with torch.cuda.device(q.device):
+        rc = library().paged_decode_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            table.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
+            out.data_ptr(), B, H, KV, n_lp, page, page_stride,
+            dh, int(window), scale, int(q.dtype == torch.bfloat16),
+            decode_split(B, KV, n_lp * page, sm_count(q.device.index)),
+            torch.cuda.current_stream(q.device).cuda_stream)
     check(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out

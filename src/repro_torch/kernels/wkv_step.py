@@ -109,11 +109,13 @@ def wkv_step(r, k, v, logw, u, state, out_state: torch.Tensor
         raise ValueError("wkv_step: out_state overlaps state without being "
                          "state itself")
     o = torch.empty((B, H, P), dtype=torch.float32, device=r.device)
-    rc = library().wkv_step(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-        u.data_ptr(), state.data_ptr(), o.data_ptr(), out_state.data_ptr(),
-        B, H, P, int(r.dtype == torch.bfloat16),
-        torch.cuda.current_stream(r.device).cuda_stream)
+    # the library launches on the current device: the tensors' one
+    with torch.cuda.device(r.device):
+        rc = library().wkv_step(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+            u.data_ptr(), state.data_ptr(), o.data_ptr(), out_state.data_ptr(),
+            B, H, P, int(r.dtype == torch.bfloat16),
+            torch.cuda.current_stream(r.device).cuda_stream)
     check(rc, "wkv_step")
     wkv_step.launches += 1
     return o, out_state

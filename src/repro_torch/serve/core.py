@@ -35,6 +35,15 @@ expert engine, plus the dispatch executors.
     (engine, batch bucket, k). A wave that could wrap its ring (or, paged,
     a chunked one) falls back to plain decode.
   * every such host-blocking copy increments ``EngineStats.host_blocks``.
+  * with a 1-D ``expert`` mesh (``launch.mesh.ExpertMesh``, size n
+    dividing E) the bank is split as the reference's
+    ``leading_sharding`` splits it: member ``e`` lives on position ``e //
+    (E // n)`` with its params, its cache or pool slice, its token planes
+    and its draft state. Every E-leading tensor is kept as one tensor a
+    position (a list of n; one without a mesh), each step of a bucket is
+    one graph a position, and a harvest copies every position's planes
+    into one pinned host buffer and waits once: one host block a wave,
+    however many devices it spans.
 
 The dispatch executors decide *when* the host blocks:
 
@@ -54,9 +63,10 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import on_device, resolve_device
 from ..obs.trace import NULL_TRACER
-from ..tree import tree_map
+from ..sharding import leading_sharding
+from ..tree import leaves, tree_map
 from .draft import DraftModel, build_draft
 from .graphs import DecodeGraph, VerifyGraph
 from .kvcache import PagePool, PagePoolExhausted, PrefixCache, hash_chain
@@ -100,7 +110,8 @@ class EngineStats:
     """Serving counters for one ``EngineCore``.
 
     ``decode_compiles`` counts the engine's ``DecodeGraph`` objects, one
-    per decode batch bucket run so far: on CUDA each holds one captured
+    per (mesh position, decode batch bucket) run so far (one position
+    without a mesh): on CUDA each holds one captured
     graph (``decode_captured`` of them are captured so far; their
     capture took ``decode_capture_ms`` of host time), as each of the
     reference's holds one executable. Prefill runs eagerly and compiles
@@ -112,10 +123,11 @@ class EngineStats:
     out first, where it still runs), decode and verify steps alike.
     ``verify_compiles`` / ``verify_captured`` / ``verify_capture_ms`` are
     the same for the ``VerifyGraph`` objects of a speculative engine, one
-    per (batch bucket, k). Speculation: ``verify_steps`` counts verifies
-    (each also a decode step), ``tokens_drafted`` k per verified active
-    row, ``tokens_accepted`` the matched drafts, ``spec_fallback_waves``
-    waves that wanted to speculate but failed the no-wrap / chunk gate.
+    per (position, batch bucket, k). Speculation: ``verify_steps``
+    counts verifies (each also a decode step), ``tokens_drafted`` k per
+    verified active row, ``tokens_accepted`` the matched drafts,
+    ``spec_fallback_waves`` waves that wanted to speculate but failed
+    the no-wrap / chunk gate.
     ``host_blocks`` counts host-blocking device-to-host copies. Prefill
     accounting: ``prefill_tokens_submitted`` counts every prompt token
     clients sent, ``prefill_tokens_computed`` the tokens that went
@@ -154,31 +166,37 @@ class EngineStats:
 
     @property
     def decode_compiles(self) -> int:
-        return len(self._core._graphs) if self._core else 0
+        return sum(map(len, self._core._graphs.values())) if self._core \
+            else 0
 
     @property
     def decode_captured(self) -> int:
-        return sum(g.graph is not None
-                   for g in self._core._graphs.values()) if self._core else 0
+        return sum(g.graph is not None for g in
+                   self._core._steps(self._core._graphs)) if self._core \
+            else 0
 
     @property
     def decode_capture_ms(self) -> float:
-        return sum(g.capture_ms
-                   for g in self._core._graphs.values()) if self._core else 0.0
+        return sum(g.capture_ms for g in
+                   self._core._steps(self._core._graphs)) if self._core \
+            else 0.0
 
     @property
     def verify_compiles(self) -> int:
-        return len(self._core._verify_graphs) if self._core else 0
+        return sum(map(len, self._core._verify_graphs.values())) \
+            if self._core else 0
 
     @property
     def verify_captured(self) -> int:
         return sum(g.graph is not None for g in
-                   self._core._verify_graphs.values()) if self._core else 0
+                   self._core._steps(self._core._verify_graphs)) \
+            if self._core else 0
 
     @property
     def verify_capture_ms(self) -> float:
         return sum(g.capture_ms for g in
-                   self._core._verify_graphs.values()) if self._core else 0.0
+                   self._core._steps(self._core._verify_graphs)) \
+            if self._core else 0.0
 
     @property
     def acceptance_rate(self) -> float:
@@ -247,9 +265,14 @@ class EngineStats:
 class _Wave:
     """One admitted (E, Bb) micro-batch wave resident in the core.
 
+    Every device tensor of a wave is split over the core's mesh
+    positions: a list holding one (E / n, ...) tensor a position, on
+    that position's device (one (E, ...) tensor without a mesh).
+
     ``emitted`` holds one (E, Bb) token plane per generated step; planes
-    start life as device tensors and are swapped for host arrays by
-    ``_materialize`` — ``n_host`` is the already-materialised prefix.
+    start life as such lists of device tensors and are swapped for host
+    (E, Bb) arrays by ``_materialize`` — ``n_host`` is the
+    already-materialised prefix.
 
     Ring waves own a dense ``cache``; paged waves instead carry a page
     ``table`` into the core's shared pool plus the wave's ``pos``/``t``
@@ -260,19 +283,20 @@ class _Wave:
     uids: Dict[int, List[Any]]          # local expert -> row uids
     per_row_new: Dict[int, List[int]]
     done: Dict[int, List[bool]]
-    cache: Any                          # ring: the model's cache tree,
-    #   each leaf stacked on a leading E axis (dense: {k, v (E, L, Bb, C,
-    #   KV, dh), pos (E, C), t (E,)}); stale while the wave is resident in
-    #   its bucket's DecodeGraph, whose static state is then its own
-    tok: Optional[torch.Tensor]         # (E, Bb, 1) last sampled token;
+    cache: Any                          # ring: a position's cache tree
+    #   each, the model's tree with every leaf stacked on a leading axis
+    #   of the position's members (dense: {k, v (E/n, L, Bb, C, KV, dh),
+    #   pos (E/n, C), t (E/n,)}); stale while the wave is resident in its
+    #   bucket's DecodeGraphs, whose static state is then its own
+    tok: Optional[List[torch.Tensor]]   # (E, Bb, 1) last sampled token;
     #   None while prefill chunks are still pending (decode is gated)
     emitted: List[Any]                  # (E, Bb) planes, device or host
     steps_left: int
     n_host: int = 0                     # emitted[:n_host] are host arrays
     # paged-layout fields (None / empty on ring waves)
-    table: Optional[torch.Tensor] = None     # (E, Bb, n_logical) int32
-    pos: Optional[torch.Tensor] = None       # (E, C) slot positions
-    t: Optional[torch.Tensor] = None         # (E,) next write position
+    table: Optional[List[torch.Tensor]] = None   # (E, Bb, n_logical) int32
+    pos: Optional[List[torch.Tensor]] = None     # (E, C) slot positions
+    t: Optional[List[torch.Tensor]] = None       # (E,) next write position
     pages_held: Dict[int, List[List[int]]] = \
         dataclasses.field(default_factory=dict)
     register: List[Tuple[int, int, int, List[bytes], List[int]]] = \
@@ -285,7 +309,7 @@ class _Wave:
     pending_chunks: List[Dict[str, Any]] = \
         dataclasses.field(default_factory=list)
     finalize: Optional[Dict[str, Any]] = None
-    _tok_c: Optional[torch.Tensor] = None    # last chunk's packed argmax
+    _tok_c: Optional[List[torch.Tensor]] = None  # last chunk's logits
     # speculative-decoding fields (inert on plain waves). Spec waves
     # advance rows at different rates, so they carry per-row ``row_pos``
     # / ``row_t`` instead of the shared pos/t (a ring spec wave's
@@ -295,10 +319,11 @@ class _Wave:
     # ``spec_pending``, drained by ``_materialize_spec`` into the host
     # per-row token buffer ``host_buf`` (column 0 is the prefill token)
     spec: bool = False
-    row_pos: Optional[torch.Tensor] = None   # (E, Bb, C) per-row slots
-    row_t: Optional[torch.Tensor] = None     # (E, Bb) per-row write pos
-    cap: Optional[torch.Tensor] = None       # (E, Bb) freeze position
-    spec_pending: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    row_pos: Optional[List[torch.Tensor]] = None  # (E, Bb, C) per-row slots
+    row_t: Optional[List[torch.Tensor]] = None    # (E, Bb) per-row write pos
+    cap: Optional[List[torch.Tensor]] = None      # (E, Bb) freeze position
+    spec_pending: List[List[torch.Tensor]] = \
+        dataclasses.field(default_factory=list)
     host_buf: Optional[np.ndarray] = None    # (E, Bb, 1 + steps) int32
     host_fill: Optional[np.ndarray] = None   # (E, Bb) tokens in host_buf
     spec_seeded: bool = False                # host_buf column 0 written
@@ -323,6 +348,38 @@ def _in_place(given: torch.Tensor, got: torch.Tensor) -> None:
             "replays on fixed buffers)")
 
 
+def bank_positions(n_experts: int, mesh, device=None
+                   ) -> Tuple[Any, Tuple[torch.device, ...]]:
+    """``(mesh, devices)``: the mesh a bank of ``n_experts`` is split
+    over (``None`` when unsharded, as for a mesh of size 1) and the
+    device of each of its positions (one without a mesh: ``device``,
+    ``cuda`` unless ``"cpu"``). The mesh's ``expert`` axis must divide
+    the bank, as the reference requires; a ``device`` given beside a mesh
+    must be of its devices' type. A ``cuda`` position without an index
+    is the current card."""
+    if mesh is None:
+        return None, (resolve_device(device),)
+    if "expert" not in mesh.shape or n_experts % mesh.shape["expert"]:
+        raise ValueError(
+            f"mesh expert axis {dict(mesh.shape)} must divide the "
+            f"bank's {n_experts} experts")
+    devs = tuple(resolve_device(d) for d in mesh.devices)
+    devs = tuple(torch.device("cuda", torch.cuda.current_device())
+                 if d.type == "cuda" and d.index is None else d
+                 for d in devs)
+    if device is not None and resolve_device(device).type != devs[0].type:
+        raise ValueError(f"device {device} beside a mesh on "
+                         f"{[str(d) for d in devs]}")
+    return (mesh if len(devs) > 1 else None), devs
+
+
+def _on(got: torch.device, want: torch.device) -> bool:
+    """Whether a tensor on ``got`` lives on ``want`` (a ``cuda`` without
+    an index is any card)."""
+    return got.type == want.type and (want.index is None
+                                      or got.index == want.index)
+
+
 class EngineCore:
     """E homogeneous experts: bucketed shapes, resident waves, device-side
     token state, batched harvest.
@@ -331,13 +388,17 @@ class EngineCore:
     ``_materialize`` calls — per tick in sync mode (``defer=False``, the
     serial reference), or one batched copy per wave inside ``harvest()``
     in deferred mode. Runs on ``cuda`` unless ``device="cpu"``; the
-    experts' params must already live there. On CUDA each decode bucket's
-    step (and each verify bucket's) is a captured graph unless
-    ``capture_decode=False`` (the counterpart of ``jax.disable_jit``),
-    which runs the same step eagerly; the CPU always runs it eagerly.
-    ``speculate_k`` > 0 drafts that many tokens a row with ``draft`` (a
-    ``DraftModel`` or its name, default ``"mlp"``), whose state is drawn
-    from a ``torch.Generator`` seeded 0 on the engine's device.
+    experts' params must already live there. With ``mesh`` (a 1-D
+    ``expert`` mesh whose size divides E) member ``e`` runs on position
+    ``e // (E // n)``'s device, where its params must already live. On
+    CUDA each decode bucket's step (and each verify bucket's) is a
+    captured graph a position unless ``capture_decode=False`` (the
+    counterpart of ``jax.disable_jit``), which runs the same step
+    eagerly; the CPU always runs it eagerly. ``speculate_k`` > 0 drafts
+    that many tokens a row with ``draft`` (a ``DraftModel`` or its name,
+    default ``"mlp"``), whose state is drawn once for all E members from
+    a ``torch.Generator`` seeded 0 on the first position's device, then
+    split over the positions.
     """
 
     def __init__(self, model, params_list: Sequence[Any], *,
@@ -354,18 +415,21 @@ class EngineCore:
         if kv_layout not in ("ring", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; expected "
                              "'ring' or 'paged'")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not part of the single-GPU port")
-        self.device = resolve_device(device)
-        for params in params_list:
-            w = params["embed"]
-            if w.device.type != self.device.type:
-                raise ValueError(f"expert params live on {w.device}, the "
-                                 f"engine runs on {self.device}")
         self.model = model
         self.params = list(params_list)
         self.n_experts = len(self.params)
+        self.mesh, self.devices = bank_positions(self.n_experts, mesh,
+                                                 device)
+        self.device = self.devices[0]
+        self.per_pos = self.n_experts // len(self.devices)
+        where = leading_sharding(self.n_experts, "expert", self.mesh)
+        for e, params in enumerate(self.params):
+            dev = self.devices[where[e] if where else 0]
+            for w in leaves(params):
+                if not _on(w.device, dev):
+                    raise ValueError(
+                        f"expert {e}'s params live on {w.device}, the "
+                        f"engine runs it on {dev}")
         self.max_len = max_len
         self.len_buckets = make_buckets(min_len_bucket, max_len)
         self.batch_buckets = tuple(batch_buckets or make_buckets(1, 16))
@@ -377,15 +441,16 @@ class EngineCore:
         self._prefill_shapes: set = set()    # (Bb, Sb) run so far
         self._suffix_shapes: set = set()     # (Bb, chunk index k >= 1)
         self.capture_decode = bool(capture_decode)
-        self._graphs: Dict[int, DecodeGraph] = {}   # Bb -> its step
-        self._verify_graphs: Dict[Tuple[int, int], VerifyGraph] = {}
-        #   ^ (Bb, k) -> its verify step
-        self._graph_pool = None              # CUDA: one pool, one stream
-        self._graph_stream = None            #   for every bucket's graph
+        self._graphs: Dict[int, List[DecodeGraph]] = {}
+        #   ^ Bb -> its step, one graph a position
+        self._verify_graphs: Dict[Tuple[int, int], List[VerifyGraph]] = {}
+        #   ^ (Bb, k) -> its verify step, one graph a position
+        self._graph_pools: Dict[torch.device, Tuple[Any, Any]] = {}
+        #   ^ CUDA: one (memory pool, capture stream) a device
         # -- paged KV state (None in ring layout) ------------------------
         self.pool: Optional[PagePool] = None
         self.prefix_cache: Optional[PrefixCache] = None
-        self.kv_pool = None                  # {k, v}: (E, P1, L, page, ...)
+        self.kv_pool = None     # a position's {k, v}: (E/n, P1, L, page, ...)
         if kv_layout == "paged":
             if not model.supports_paged_kv:
                 raise ValueError(
@@ -406,13 +471,15 @@ class EngineCore:
                 3 * self.batch_buckets[-1] * self.n_logical
             self.pool = PagePool(self.n_experts, per_expert, self.page)
             self.prefix_cache = PrefixCache(self.pool, capacity=1024)
-            # one zeroed pool per expert, stacked: trash-page reads by
-            # padding rows must stay finite
-            pools = [model.init_paged_pool(per_expert, self.page,
-                                           device=self.device)
-                     for _ in range(self.n_experts)]
-            self.kv_pool = {k: _stack([p[k] for p in pools])
-                            for k in ("k", "v")}
+            # one zeroed pool per expert, stacked by position: trash-page
+            # reads by padding rows must stay finite
+            self.kv_pool = []
+            for dev in self.devices:
+                pools = [model.init_paged_pool(per_expert, self.page,
+                                               device=dev)
+                         for _ in range(self.per_pos)]
+                self.kv_pool.append({k: _stack([p[k] for p in pools])
+                                     for k in ("k", "v")})
         # -- chunked prefill geometry (paged only) -----------------------
         self.chunk_len: Optional[int] = None
         if chunk_len is not None:
@@ -459,11 +526,15 @@ class EngineCore:
                 d = build_draft(d, int(model.cfg.padded_vocab))
             self.draft = d
             self.draft_name = d.name
-            # engine-level state (leading E axis), updated in place by
-            # every verify, so an online draft keeps learning across waves
-            self.draft_state = d.init_state(
+            # engine-level state, updated in place by every verify, so an
+            # online draft keeps learning across waves. It is drawn once
+            # for the whole bank (a generator a position would draw
+            # other values) and each position takes its members' slice
+            st = d.init_state(
                 torch.Generator(device=self.device).manual_seed(0),
                 self.n_experts)
+            self.draft_state = [tree_map(lambda a: a[sl].to(dev), st)
+                                for sl, dev in self._slices()]
         elif draft is not None:
             raise ValueError("draft requires speculate_k > 0")
 
@@ -475,7 +546,10 @@ class EngineCore:
         """Steady-state bound on the distinct shape keys per family (the
         reference's executable-count bound). With chunking, monolithic
         prefill shapes exist only for length buckets <= chunk_len, and
-        the suffix ladder adds one per (batch bucket, chunk index >= 1)."""
+        the suffix ladder adds one per (batch bucket, chunk index >= 1).
+        A step graph belongs to one device, so the decode and verify
+        ladders hold one graph per (mesh position, batch bucket) where
+        the reference's SPMD executable spans the mesh."""
         nB = len(self.batch_buckets)
         if self.chunk_len:
             prefill = nB * sum(1 for b in self.len_buckets
@@ -487,124 +561,178 @@ class EngineCore:
         # the verify ladder is keyed (Bb, k) with k fixed per engine: at
         # most one per batch bucket, none on an engine that never
         # speculates
-        return {"prefill": prefill, "suffix": suffix, "decode": nB,
-                "verify": nB if self.speculate_k else 0}
+        steps = nB * len(self.devices)
+        return {"prefill": prefill, "suffix": suffix, "decode": steps,
+                "verify": steps if self.speculate_k else 0}
+
+    # -- mesh positions --------------------------------------------------
+    def _slices(self) -> List[Tuple[slice, torch.device]]:
+        """Each position's members (a slice of the E axis) and device."""
+        n = self.per_pos
+        return [(slice(p * n, (p + 1) * n), dev)
+                for p, dev in enumerate(self.devices)]
+
+    def _members(self, p: int) -> range:
+        return range(p * self.per_pos, (p + 1) * self.per_pos)
+
+    def _upload(self, a: np.ndarray, dtype=None) -> List[torch.Tensor]:
+        """A host (E, ...) array -> each position's (E/n, ...) slice on
+        its device."""
+        t = torch.from_numpy(a)
+        if dtype is not None:
+            t = t.to(dtype)
+        return [t[sl].to(dev) for sl, dev in self._slices()]
+
+    def _fetch(self, parts: Sequence[torch.Tensor]) -> np.ndarray:
+        """Each position's (E/n, ...) tensor -> one host (E, ...) array:
+        every copy is issued without blocking into one pinned buffer, then
+        the host waits once (the caller counts one host block)."""
+        if self.device.type == "cpu":
+            return torch.cat(list(parts)).numpy()
+        host = torch.empty((self.n_experts,) + tuple(parts[0].shape[1:]),
+                           dtype=parts[0].dtype, pin_memory=True)
+        done = []
+        for (sl, _), x in zip(self._slices(), parts):
+            host[sl].copy_(x, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(x.device))
+            done.append(ev)
+        for ev in done:
+            ev.synchronize()
+        return host.numpy()
+
+    @staticmethod
+    def _steps(ladder: Mapping[Any, Sequence[Any]]) -> List[Any]:
+        """Every step graph of a ladder (``_graphs`` or
+        ``_verify_graphs``), each bucket's positions in order."""
+        return [g for gs in ladder.values() for g in gs]
 
     # -- device work -----------------------------------------------------
     def _expert_pool(self, e: int) -> Dict[str, torch.Tensor]:
         """Expert ``e``'s (P1, L, page, KV, dh) pool views."""
-        return {"k": self.kv_pool["k"][e], "v": self.kv_pool["v"][e]}
+        p, i = divmod(e, self.per_pos)
+        return {"k": self.kv_pool[p]["k"][i], "v": self.kv_pool[p]["v"][i]}
 
     def _prefill(self, toks: np.ndarray):
-        """(E, Bb, Sb) tokens -> (logits (E, Bb, V), wave cache)."""
+        """(E, Bb, Sb) tokens -> (logits (E, Bb, V), wave cache), each a
+        list over the positions."""
         self._prefill_shapes.add(toks.shape[1:])
-        tok_dev = torch.from_numpy(toks).to(self.device)
         logits, caches = [], []
-        for e in range(self.n_experts):
-            lg, c = self.model.prefill(self.params[e],
-                                       {"tokens": tok_dev[e]},
-                                       capacity=self.max_len)
-            logits.append(lg)
-            caches.append(c)
-        cache = tree_map(lambda *leaves: _stack(leaves), *caches)
-        return _stack(logits), cache
+        for p, tok_dev in enumerate(self._upload(toks)):
+            lg_p, c_p = [], []
+            for i, e in enumerate(self._members(p)):
+                lg, c = self.model.prefill(self.params[e],
+                                           {"tokens": tok_dev[i]},
+                                           capacity=self.max_len)
+                lg_p.append(lg)
+                c_p.append(c)
+            logits.append(_stack(lg_p))
+            caches.append(tree_map(lambda *leaves: _stack(leaves), *c_p))
+        return logits, caches
 
     def _paged_prefill(self, toks: np.ndarray, stbl: np.ndarray
-                       ) -> torch.Tensor:
+                       ) -> List[torch.Tensor]:
         """(E, Bb, Sb) tokens, (E, Bb, Sb // page) scatter table ->
         logits (E, Bb, V); the pages land in the pool in place."""
         self._prefill_shapes.add(toks.shape[1:])
-        tok_dev = torch.from_numpy(toks).to(self.device)
-        stbl_dev = torch.from_numpy(stbl).to(self.device)
         logits = []
-        for e in range(self.n_experts):
-            lg, _, _, _ = self.model.paged_prefill(
-                self.params[e], {"tokens": tok_dev[e]}, self._expert_pool(e),
-                stbl_dev[e], page=self.page, capacity=self.max_len)
-            logits.append(lg)
-        return _stack(logits)
+        for p, (tok_dev, stbl_dev) in enumerate(zip(self._upload(toks),
+                                                    self._upload(stbl))):
+            logits.append(_stack([self.model.paged_prefill(
+                self.params[e], {"tokens": tok_dev[i]},
+                self._expert_pool(e), stbl_dev[i], page=self.page,
+                capacity=self.max_len)[0]
+                for i, e in enumerate(self._members(p))]))
+        return logits
 
     def _paged_suffix(self, k: int, toks: np.ndarray, ptbl: np.ndarray,
-                      stbl: np.ndarray) -> torch.Tensor:
+                      stbl: np.ndarray) -> List[torch.Tensor]:
         """Suffix prefill of chunk ``k >= 1``: exactly ``chunk_len``
         tokens at offset ``k * chunk_len``, attending over the prefix
         pages already in the pool. Shape key (Bb, k), so the ladder is
         bounded by ``(max(len_buckets) // chunk_len - 1) *
         len(batch_buckets)``."""
         self._suffix_shapes.add((toks.shape[1], k))
-        tok_dev = torch.from_numpy(toks).to(self.device)
-        ptbl_dev = torch.from_numpy(ptbl).to(self.device)
-        stbl_dev = torch.from_numpy(stbl).to(self.device)
         logits = []
-        for e in range(self.n_experts):
-            lg, _ = self.model.paged_prefill_suffix(
-                self.params[e], {"tokens": tok_dev[e]}, self._expert_pool(e),
-                ptbl_dev[e], stbl_dev[e], offset=k * self.chunk_len,
-                page=self.page)
-            logits.append(lg)
-        return _stack(logits)
+        for p, (tok_dev, ptbl_dev, stbl_dev) in enumerate(zip(
+                self._upload(toks), self._upload(ptbl),
+                self._upload(stbl))):
+            logits.append(_stack([self.model.paged_prefill_suffix(
+                self.params[e], {"tokens": tok_dev[i]},
+                self._expert_pool(e), ptbl_dev[i], stbl_dev[i],
+                offset=k * self.chunk_len, page=self.page)[0]
+                for i, e in enumerate(self._members(p))]))
+        return logits
 
-    def _new_graph(self, cls, *args):
-        """A step graph of this engine: captured on CUDA unless
-        ``capture_decode=False``; every graph of the engine shares one
+    def _new_graphs(self, cls, *args) -> List[Any]:
+        """A step's graphs, one a position: captured on CUDA unless
+        ``capture_decode=False``. The graphs on one device share one
         memory pool and one capture stream."""
-        capture = self.capture_decode and self.device.type == "cuda"
-        if capture and self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-            self._graph_stream = torch.cuda.Stream(self.device)
-        return cls(self, *args, capture=capture, pool=self._graph_pool,
-                   stream=self._graph_stream)
+        out = []
+        for p, dev in enumerate(self.devices):
+            capture = self.capture_decode and dev.type == "cuda"
+            if capture and dev not in self._graph_pools:
+                with on_device(dev):
+                    self._graph_pools[dev] = (torch.cuda.graph_pool_handle(),
+                                              torch.cuda.Stream(dev))
+            pool, stream = self._graph_pools.get(dev, (None, None))
+            out.append(cls(self, p, *args, capture=capture, pool=pool,
+                           stream=stream))
+        return out
 
-    def _decode_step(self, w: "_Wave") -> torch.Tensor:
+    def _decode_step(self, w: "_Wave") -> List[torch.Tensor]:
         """One decode step of wave ``w`` through its bucket's
-        ``DecodeGraph`` (made at the bucket's first step). Returns the
-        new (E, Bb, 1) int32 token plane, a tensor of its own."""
-        Bb = w.tok.shape[1]
-        g = self._graphs.get(Bb)
-        if g is None:
-            g = self._graphs[Bb] = self._new_graph(DecodeGraph, Bb)
-        return g.step(w)
+        ``DecodeGraph``s (made at the bucket's first step), every
+        position's enqueued before anything blocks. Returns the new (E,
+        Bb, 1) int32 token plane, tensors of its own."""
+        Bb = w.tok[0].shape[1]
+        gs = self._graphs.get(Bb)
+        if gs is None:
+            gs = self._graphs[Bb] = self._new_graphs(DecodeGraph, Bb)
+        return [g.step(w) for g in gs]
 
-    def _verify_step(self, w: "_Wave") -> torch.Tensor:
+    def _verify_step(self, w: "_Wave") -> List[torch.Tensor]:
         """One verify of spec wave ``w`` through its (bucket, k)
-        ``VerifyGraph``. Returns the (E, Bb, k + 4) plane of its outputs,
-        a tensor of its own; ``w.tok``, ``w.row_pos`` and ``w.row_t``
+        ``VerifyGraph``s. Returns the (E, Bb, k + 4) plane of its outputs,
+        tensors of its own; ``w.tok``, ``w.row_pos`` and ``w.row_t``
         advance."""
-        key = (w.tok.shape[1], self.speculate_k)
-        g = self._verify_graphs.get(key)
-        if g is None:
-            g = self._verify_graphs[key] = self._new_graph(VerifyGraph,
-                                                           *key)
-        return g.step(w)
+        key = (w.tok[0].shape[1], self.speculate_k)
+        gs = self._verify_graphs.get(key)
+        if gs is None:
+            gs = self._verify_graphs[key] = self._new_graphs(VerifyGraph,
+                                                             *key)
+        outs = [g.step(w) for g in gs]
+        w.tok = [o[..., self.speculate_k + 3:] for o in outs]
+        return outs
 
-    def _verify(self, cache, table, row_pos, row_t, tok, cap, k: int
-                ) -> torch.Tensor:
-        """The body of a verify step, the counterpart of the reference's
-        fused ``_verify_fn``: per expert, the draft proposes ``k`` tokens
-        from each row's last one, the model scores the (Bb, k+1) window
-        (``verify`` on the ring cache {k, v} (E, L, Bb, C, KV, dh), or
-        ``paged_verify`` through ``table`` (E, Bb, n_logical)), and
-        ``_accept`` takes the matched prefix. ``row_pos`` (E, Bb, C),
-        ``row_t`` (E, Bb), the cache or pool and the draft state are
-        written in place; ``tok`` and ``cap`` (E, Bb) are read. Returns
-        the (E, Bb, k + 4) int32 plane [greedy window | adv | acc | next
-        token]."""
+    def _verify(self, p: int, cache, table, row_pos, row_t, tok, cap,
+                k: int) -> torch.Tensor:
+        """The body of position ``p``'s verify step, the counterpart of
+        the reference's fused ``_verify_fn``: per member, the draft
+        proposes ``k`` tokens from each row's last one, the model scores
+        the (Bb, k+1) window (``verify`` on the ring cache {k, v} (E/n,
+        L, Bb, C, KV, dh), or ``paged_verify`` through ``table`` (E/n, Bb,
+        n_logical)), and ``_accept`` takes the matched prefix. ``row_pos``
+        (E/n, Bb, C), ``row_t`` (E/n, Bb), the cache or pool and the draft
+        state are written in place; ``tok`` and ``cap`` (E/n, Bb) are
+        read. Returns the (E/n, Bb, k + 4) int32 plane [greedy window |
+        adv | acc | next token]."""
         outs = []
-        for e in range(self.n_experts):
-            st = tree_map(lambda a: a[e], self.draft_state)
-            window = torch.cat([tok[e][:, None],
-                                self.draft.propose(st, tok[e], k)], dim=1)
+        for i, e in enumerate(self._members(p)):
+            st = tree_map(lambda a: a[i], self.draft_state[p])
+            window = torch.cat([tok[i][:, None],
+                                self.draft.propose(st, tok[i], k)], dim=1)
             if self.kv_layout == "paged":
                 greedy, _ = self.model.paged_verify(
-                    self.params[e], self._expert_pool(e), table[e],
-                    row_pos[e], row_t[e], {"tokens": window},
+                    self.params[e], self._expert_pool(e), table[i],
+                    row_pos[i], row_t[i], {"tokens": window},
                     page=self.page)
             else:
                 greedy, _ = self.model.verify(
-                    self.params[e], {"k": cache["k"][e], "v": cache["v"][e]},
-                    row_pos[e], row_t[e], {"tokens": window})
-            outs.append(self._accept(window, greedy, row_pos[e], row_t[e],
-                                     tok[e], cap[e], st))
+                    self.params[e], {"k": cache["k"][i], "v": cache["v"][i]},
+                    row_pos[i], row_t[i], {"tokens": window})
+            outs.append(self._accept(window, greedy, row_pos[i], row_t[i],
+                                     tok[i], cap[i], st))
         return _stack(outs)
 
     def _accept(self, window, greedy, row_pos, row_t, tok, cap, dstate
@@ -637,53 +765,57 @@ class EngineCore:
         return torch.cat([greedy, adv[:, None], acc[:, None],
                           tok2[:, None]], dim=1)
 
-    def _decode(self, cache, tok: torch.Tensor) -> torch.Tensor:
-        """The body of a ring decode step over the model's own cache tree
-        (nested dicts of (E, ...) tensors), which the model writes in
-        place: every leaf it returns must be the view it was given. It
-        gets a copy of the dict of views, so a key it rebinds shows as a
-        new leaf and raises. Returns logits (E, Bb, V)."""
+    def _decode(self, p: int, cache, tok: torch.Tensor) -> torch.Tensor:
+        """The body of position ``p``'s ring decode step over the model's
+        own cache tree (nested dicts of (E/n, ...) tensors), which the
+        model writes in place: every leaf it returns must be the view it
+        was given. It gets a copy of the dict of views, so a key it
+        rebinds shows as a new leaf and raises. Returns logits (E/n, Bb,
+        V)."""
         logits = []
-        for e in range(self.n_experts):
-            ve = tree_map(lambda a: a[e], cache)
+        for i, e in enumerate(self._members(p)):
+            ve = tree_map(lambda a: a[i], cache)
             lg, out = self.model.decode(self.params[e],
                                         tree_map(lambda a: a, ve),
-                                        {"token": tok[e]})
+                                        {"token": tok[i]})
             tree_map(_in_place, ve, out)
             logits.append(lg)
         return _stack(logits)
 
-    def _paged_decode(self, table: torch.Tensor, pos: torch.Tensor,
+    def _paged_decode(self, p: int, table: torch.Tensor, pos: torch.Tensor,
                       t: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
-        """The body of a paged decode step through page tables ``table``
-        (E, Bb, n_logical): the pool is written in place and ``pos`` (E,
-        C) / ``t`` (E,) advance in place. Returns logits (E, Bb, V)."""
+        """The body of position ``p``'s paged decode step through page
+        tables ``table`` (E/n, Bb, n_logical): the pool is written in
+        place and ``pos`` (E/n, C) / ``t`` (E/n,) advance in place.
+        Returns logits (E/n, Bb, V)."""
         logits = []
-        for e in range(self.n_experts):
-            lg, _, p, te = self.model.paged_decode(
-                self.params[e], self._expert_pool(e), table[e], pos[e],
-                t[e], {"token": tok[e]}, page=self.page)
-            pos[e].copy_(p)
-            t[e].copy_(te)
+        for i, e in enumerate(self._members(p)):
+            lg, _, q, te = self.model.paged_decode(
+                self.params[e], self._expert_pool(e), table[i], pos[i],
+                t[i], {"token": tok[i]}, page=self.page)
+            pos[i].copy_(q)
+            t[i].copy_(te)
             logits.append(lg)
         return _stack(logits)
 
     def _copy_pages(self, copies: Mapping[int, Sequence[Tuple[int, int]]]
                     ) -> None:
         """Apply copy-on-write page copies: one indexed copy per pool
-        over every expert's (src, dst) pairs, in place (the reference
-        pads the copy count to a power of two to bound its compiles; the
-        port compiles nothing per shape, so it copies exactly what it
-        must). Each copy moves a page for every layer."""
-        triples = [(local, s_, d) for local, pairs in copies.items()
-                   for s_, d in pairs]
-        if not triples:
-            return
-        es, srcs, dsts = (torch.as_tensor(col, dtype=torch.long,
-                                          device=self.device)
-                          for col in zip(*triples))
-        for buf in self.kv_pool.values():
-            buf[es, dsts] = buf[es, srcs]
+        over each position's (member, src, dst) triples, in place (the
+        reference pads the copy count to a power of two to bound its
+        compiles; the port compiles nothing per shape, so it copies
+        exactly what it must). Each copy moves a page for every layer."""
+        for p, dev in enumerate(self.devices):
+            triples = [(local - p * self.per_pos, s_, d)
+                       for local, pairs in copies.items()
+                       if local // self.per_pos == p for s_, d in pairs]
+            if not triples:
+                continue
+            es, srcs, dsts = (torch.as_tensor(col, dtype=torch.long,
+                                              device=dev)
+                              for col in zip(*triples))
+            for buf in self.kv_pool[p].values():
+                buf[es, dsts] = buf[es, srcs]
 
     @staticmethod
     def _sample(logits: torch.Tensor) -> torch.Tensor:
@@ -711,9 +843,9 @@ class EngineCore:
             for i, m in enumerate(ms):
                 cap[local, i] = Sb + m - 1
         return _Wave(uids=uids, per_row_new=per_row, done=done, tok=tok,
-                     emitted=[tok[..., 0]], steps_left=steps, spec=True,
-                     row_pos=row_pos, row_t=row_t,
-                     cap=torch.from_numpy(cap).to(self.device),
+                     emitted=[[t[..., 0] for t in tok]], steps_left=steps,
+                     spec=True, row_pos=row_pos, row_t=row_t,
+                     cap=self._upload(cap),
                      host_buf=np.zeros((E, Bb, steps + 1), np.int32),
                      host_fill=np.zeros((E, Bb), np.int32), **fields)
 
@@ -775,28 +907,31 @@ class EngineCore:
             # below opens only after admission succeeds
             w = self._admit_paged(toks, uids, per_row, done, Bb, Sb)
         else:
-            logits, cache = self._prefill(toks)
+            logits, caches = self._prefill(toks)
             self.stats.prefill_calls += 1
             self.stats.prefill_rows_computed += n_rows
             self.stats.prefill_tokens_computed += n_rows * Sb
-            tok = self._sample(logits)
+            tok = [self._sample(lg) for lg in logits]
             steps = max(m for ms in per_row.values() for m in ms) - 1
             sk = self.speculate_k
             # no-wrap gate: every slot a verify may optimistically write
             # (up to Sb + steps - 1 + k) must fit the ring without
             # wrapping onto live context
             if sk and steps > 0 and Sb + steps + sk <= self.max_len:
-                C = self.max_len
+                C, n = self.max_len, self.per_pos
                 w = self._make_spec_wave(
-                    uids, per_row, done, Bb, Sb, steps,
-                    cache={"k": cache["k"], "v": cache["v"]}, tok=tok,
-                    row_pos=cache["pos"][:, None].expand(E, Bb, C).clone(),
-                    row_t=cache["t"][:, None].expand(E, Bb).clone())
+                    uids, per_row, done, Bb, Sb, steps, tok=tok,
+                    cache=[{"k": c["k"], "v": c["v"]} for c in caches],
+                    row_pos=[c["pos"][:, None].expand(n, Bb, C).clone()
+                             for c in caches],
+                    row_t=[c["t"][:, None].expand(n, Bb).clone()
+                           for c in caches])
             else:
                 if sk:
                     self.stats.spec_fallback_waves += 1
                 w = _Wave(uids=uids, per_row_new=per_row, done=done,
-                          cache=cache, tok=tok, emitted=[tok[..., 0]],
+                          cache=caches, tok=tok,
+                          emitted=[[t[..., 0] for t in tok]],
                           steps_left=steps)
         self.stats.rows_served += n_rows
         self.stats.rows_padded += E * Bb - n_rows
@@ -1094,17 +1229,21 @@ class EngineCore:
         self.stats.prefix_dup_rows += n_dup
         self.stats.prefix_pages_shared += n_shared
         pos = np.where(np.arange(C) < Sb, np.arange(C), -1).astype(np.int32)
-        table_dev = torch.from_numpy(table).to(self.device)
-        pos_dev = torch.from_numpy(
-            np.broadcast_to(pos, (E, C)).copy()).to(self.device)
-        t_dev = torch.full((E,), Sb, dtype=torch.int32, device=self.device)
+        table_dev = self._upload(table)
+        pos_dev = self._upload(np.broadcast_to(pos, (E, C)).copy())
+        n = self.per_pos
+        t_dev = [torch.full((n,), Sb, dtype=torch.int32, device=dev)
+                 for dev in self.devices]
         if spec_ok:
             # per-row position planes (rows advance at different rates)
             return self._make_spec_wave(
-                uids, per_row, done, Bb, Sb, steps, tok=tok[..., None],
-                row_pos=pos_dev[:, None].expand(E, Bb, C).clone(),
-                row_t=t_dev[:, None].expand(E, Bb).clone(), cache=None,
-                table=table_dev, pages_held=pages_held, register=register)
+                uids, per_row, done, Bb, Sb, steps,
+                tok=[t[..., None] for t in tok],
+                row_pos=[q[:, None].expand(n, Bb, C).clone()
+                         for q in pos_dev],
+                row_t=[t[:, None].expand(n, Bb).clone() for t in t_dev],
+                cache=None, table=table_dev, pages_held=pages_held,
+                register=register)
         w = _Wave(uids=uids, per_row_new=per_row, done=done, cache=None,
                   tok=None, emitted=[], steps_left=steps, table=table_dev,
                   pos=pos_dev, t=t_dev, pages_held=pages_held,
@@ -1112,27 +1251,33 @@ class EngineCore:
         if use_chunks:
             w.pending_chunks, w.finalize = pending, fin
         else:
-            w.tok = tok[..., None]
+            w.tok = [t[..., None] for t in tok]
             w.emitted.append(tok)
         return w
 
-    def _first_tokens(self, logits, src, mask, vals) -> torch.Tensor:
-        """The wave's (E, Bb) int32 first-token plane, on the device:
+    def _first_tokens(self, logits, src, mask, vals) -> List[torch.Tensor]:
+        """The wave's (E, Bb) int32 first-token plane, on the devices:
         the greedy token of packed row ``src[e, i]`` of ``logits`` (E,
         Bbc, V), with cached rows (``mask``) overlaid by their known
         token ``vals``. Either half may be absent (``None``)."""
-        tok = None
-        if logits is not None:
-            tok_c = torch.argmax(logits, dim=-1).to(torch.int32)
-            tok = torch.gather(tok_c, 1,
-                               torch.from_numpy(src).long().to(self.device))
-        if mask is not None:
-            v = torch.from_numpy(vals).to(self.device)
-            tok = v if tok is None else torch.where(
-                torch.from_numpy(mask).to(self.device), v, tok)
-        if tok is None:
+        if logits is None and mask is None:
             raise AssertionError("wave with rows but no token source")
-        return tok
+        n = len(self.devices)
+        srcs = self._upload(src, torch.long) if logits is not None \
+            else [None] * n
+        masks, vs = (self._upload(mask), self._upload(vals)) \
+            if mask is not None else ([None] * n, [None] * n)
+        out = []
+        for p in range(n):
+            tok = None
+            if logits is not None:
+                tok_c = torch.argmax(logits[p], dim=-1).to(torch.int32)
+                tok = torch.gather(tok_c, 1, srcs[p])
+            if mask is not None:
+                tok = vs[p] if tok is None else torch.where(masks[p], vs[p],
+                                                            tok)
+            out.append(tok)
+        return out
 
     # -- chunked prefill dispatch ----------------------------------------
     def _dispatch_chunk(self, w: _Wave) -> int:
@@ -1170,7 +1315,7 @@ class EngineCore:
         # for the last chunk
         self._copy_pages(f["copies"])
         self.stats.pages_copied += sum(len(p) for p in f["copies"].values())
-        w.tok = tok[..., None]
+        w.tok = [t[..., None] for t in tok]
         w.emitted.append(tok)
 
     def prefill_step(self, budget: int = 0) -> int:
@@ -1213,7 +1358,7 @@ class EngineCore:
                 if w.sp_decode is None and self.tracer.enabled:
                     w.sp_decode = self.tracer.begin_device(
                         "wave.verify" if w.spec else "wave.decode",
-                        wave=w.wave_id, Bb=w.tok.shape[1])
+                        wave=w.wave_id, Bb=w.tok[0].shape[1])
                 if w.spec:
                     self._spec_tick(w)
                     advanced += 1
@@ -1223,7 +1368,7 @@ class EngineCore:
                 # a plane of its own: planes wait on the device until
                 # harvest, and the graph's static output is overwritten
                 w.tok = self._decode_step(w)
-                w.emitted.append(w.tok[..., 0])
+                w.emitted.append([t[..., 0] for t in w.tok])
                 w.steps_left -= 1
                 self.stats.decode_steps += 1
                 advanced += 1
@@ -1251,9 +1396,11 @@ class EngineCore:
         if upto <= w.n_host:
             return
         planes = w.emitted[w.n_host:upto]
-        host = torch.stack(planes).cpu().numpy()
+        # (E, k, Bb): each position's planes stacked on its device
+        host = self._fetch([torch.stack(pp, dim=1)
+                            for pp in zip(*planes)])
         for k in range(len(planes)):
-            w.emitted[w.n_host + k] = host[k]
+            w.emitted[w.n_host + k] = host[:, k]
         w.n_host = upto
         self.stats.host_blocks += 1
         # the copy above completed everything enqueued for this wave, so
@@ -1277,10 +1424,12 @@ class EngineCore:
             return
         E, Bb = w.host_fill.shape
         first = w.emitted[0]
-        parts = [p.reshape(-1) for p in w.spec_pending]
-        if torch.is_tensor(first):
-            parts.insert(0, first.reshape(-1))
-        host = torch.cat(parts).cpu().numpy() if parts else None
+        seed = not isinstance(first, np.ndarray)     # still on the device
+        # a member's row of each position: [first plane | verify planes]
+        planes = ([first] if seed else []) + w.spec_pending
+        host = self._fetch([torch.cat([x.reshape(x.shape[0], -1)
+                                       for x in pp], dim=1)
+                            for pp in zip(*planes)]) if planes else None
         self.stats.host_blocks += 1
         # the copy above completed everything enqueued for this wave, so
         # its open device spans close here
@@ -1291,9 +1440,9 @@ class EngineCore:
             self.tracer.end_device(w.sp_decode,
                                    verifies=len(w.spec_pending))
             w.sp_decode = None
-        if torch.is_tensor(first):
-            w.emitted[0] = host[:E * Bb].reshape(E, Bb)
-            host = host[E * Bb:]
+        if seed:
+            w.emitted[0] = host[:, :Bb]
+            host = host[:, Bb:]
         if not w.spec_seeded:
             w.n_host = max(w.n_host, 1)
             w.host_buf[:, :, 0] = w.emitted[0]
@@ -1301,8 +1450,8 @@ class EngineCore:
             w.spec_seeded = True
         k = self.speculate_k
         K1 = k + 1
-        planes = host.reshape(len(w.spec_pending), E, Bb, k + 4) \
-            if w.spec_pending else ()
+        planes = host.reshape(E, len(w.spec_pending), Bb, k + 4).swapaxes(
+            0, 1) if w.spec_pending else ()
         for plane in planes:
             for local, row_uids in w.uids.items():
                 for i in range(len(row_uids)):
@@ -1355,7 +1504,8 @@ class EngineCore:
         """Drop a finished wave: nothing of it needs copying out of any
         step graph any more, and a paged wave's pages go back."""
         self._active.remove(w)
-        for g in (*self._graphs.values(), *self._verify_graphs.values()):
+        for g in (*self._steps(self._graphs),
+                  *self._steps(self._verify_graphs)):
             g.release(w)
         if self.kv_layout == "paged":
             self._retire_paged(w)

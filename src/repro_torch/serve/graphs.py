@@ -1,10 +1,14 @@
-"""One decode step per (engine, decode batch bucket), captured once as a
-CUDA graph and replayed for every later step of every wave at that
-bucket: the counterpart of the reference's ``EngineCore._decode_fn(Bb)``
-(``jax.jit(jax.vmap(model.decode), donate_argnums=(1,))``, one
-executable per batch bucket, the cache donated and so written in place).
-``VerifyGraph`` is the same for a speculative engine's verify step, one
-per (engine, batch bucket, k), the counterpart of ``_verify_fn(Bb, k)``.
+"""One decode step per (engine, mesh position, decode batch bucket),
+captured once as a CUDA graph and replayed for every later step of every
+wave at that bucket: the counterpart of the reference's
+``EngineCore._decode_fn(Bb)`` (``jax.jit(jax.vmap(model.decode),
+donate_argnums=(1,))``, one executable per batch bucket, the cache
+donated and so written in place). ``VerifyGraph`` is the same for a
+speculative engine's verify step, one per (engine, position, batch
+bucket, k), the counterpart of ``_verify_fn(Bb, k)``. A CUDA graph
+belongs to one device, where the reference's SPMD executable spans the
+expert mesh: position ``p``'s graph steps the members that live on
+``p``, on ``p``'s tensors (without a mesh, one position holds them all).
 
 A CUDA graph reads and writes fixed addresses, so a ``DecodeGraph``
 owns static buffers: the token plane it reads, the token plane it
@@ -27,9 +31,11 @@ step updates in place.
 On CUDA the first step at a new bucket runs eagerly on a side stream
 (the wave's real step; it warms cuBLAS and the allocator), the second
 captures the body and replays it (capture records, it does not
-execute), and every later step is copy in, ``replay()``, copy out. The
-graphs of one engine share one memory pool and replay one after another
-on the current stream. A capture or replay that fails raises: there is
+execute), and every later step is copy in, ``replay()``, copy out. Each
+graph captures and runs with its position's device current; the graphs
+of one engine on one device share one memory pool and one capture
+stream, and replay one after another on that device's current stream.
+A capture or replay that fails raises: there is
 no silent eager fallback. ``capture=False`` (the engine's
 ``capture_decode``) and the CPU run the same body eagerly on the same
 static buffers, so the residency and copy-out logic is the same on
@@ -38,7 +44,7 @@ every device.
 A verify step (``VerifyGraph``) runs propose, verify, accept and
 observe in one body. Ring spec waves swap their K/V through the static
 state as decode waves do; ring and paged spec waves copy their per-row
-``row_pos`` (E, Bb, C), ``row_t`` (E, Bb), ``cap`` and token plane in
+``row_pos`` (E/n, Bb, C), ``row_t`` (E/n, Bb), ``cap`` and token plane in
 (paged waves their page table too) and ``row_pos``/``row_t`` back out.
 The draft's state is the engine's, updated in place at fixed addresses.
 The outputs (greedy window, advance, accepted count, next token) are
@@ -59,6 +65,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..device import on_device
 from ..kernels import ops
 from ..tree import tree_map
 
@@ -71,14 +78,15 @@ class _StepGraph:
     """What a decode and a verify step share: eager, capture and replay on
     static buffers, and the residency of ring waves' caches."""
 
-    def __init__(self, core, Bb: int, *, capture: bool,
+    def __init__(self, core, p: int, Bb: int, *, capture: bool,
                  pool: Any = None,
                  stream: Optional["torch.cuda.Stream"] = None):
-        self.core, self.Bb = core, Bb
+        self.core, self.p, self.Bb = core, p, Bb
+        self.dev = core.devices[p]
+        self.n = core.per_pos                # the position's members
         self.paged = core.kv_layout == "paged"
         if self.paged:
-            self.table = _i32((core.n_experts, Bb, core.n_logical),
-                              core.device)
+            self.table = _i32((self.n, Bb, core.n_logical), self.dev)
         self.state: Optional[Dict[str, Any]] = None   # ring: static cache
         self.resident = None                 # ring: the wave it belongs to
         self.capture = capture               # CUDA only (the core decides)
@@ -92,19 +100,20 @@ class _StepGraph:
         raise NotImplementedError
 
     def _run(self) -> None:
-        if not self.capture:
-            self._body()
-        elif self.steps == 0:
-            cur = torch.cuda.current_stream()
-            self._stream.wait_stream(cur)
-            with torch.cuda.stream(self._stream):
+        with on_device(self.dev):
+            if not self.capture:
                 self._body()
-            cur.wait_stream(self._stream)
-        else:
-            if self.graph is None:
-                self._capture()
-            self.graph.replay()
-            ops.add_launches(self.launches)
+            elif self.steps == 0:
+                cur = torch.cuda.current_stream(self.dev)
+                self._stream.wait_stream(cur)
+                with torch.cuda.stream(self._stream):
+                    self._body()
+                cur.wait_stream(self._stream)
+            else:
+                if self.graph is None:
+                    self._capture()
+                self.graph.replay()
+                ops.add_launches(self.launches)
         self.steps += 1
 
     def _capture(self) -> None:
@@ -138,17 +147,20 @@ class _StepGraph:
     def _make_resident(self, w) -> None:
         if self.resident is w:
             return
+        p = self.p
         if self.state is None:
-            self.state = w.cache             # adopt: no copy
+            self.state = w.cache[p]          # adopt: no copy
         else:
             r = self.resident
             if r is not None:
-                if r.cache is self.state:    # the adopted wave
-                    r.cache = tree_map(torch.clone, self.state)
+                if r.cache[p] is self.state:     # the adopted wave
+                    r.cache[p] = tree_map(torch.clone, self.state)
                 else:
-                    tree_map(lambda d, s: d.copy_(s), r.cache, self.state)
-            tree_map(lambda d, s: d.copy_(s), self.state, w.cache)
-            self.core.stats.decode_swaps += 1
+                    tree_map(lambda d, s: d.copy_(s), r.cache[p],
+                             self.state)
+            tree_map(lambda d, s: d.copy_(s), self.state, w.cache[p])
+            if p == 0:                       # one swap a wave, not a graph
+                self.core.stats.decode_swaps += 1
         self.resident = w
 
     def release(self, w) -> None:
@@ -158,82 +170,85 @@ class _StepGraph:
 
 
 class DecodeGraph(_StepGraph):
-    """The decode step of one ``EngineCore`` at batch bucket ``Bb``."""
+    """The decode step of one ``EngineCore``'s position ``p`` at batch
+    bucket ``Bb``."""
 
-    def __init__(self, core, Bb: int, **kw):
-        super().__init__(core, Bb, **kw)
-        E, dev = core.n_experts, core.device
-        self.tok = _i32((E, Bb, 1), dev)
+    def __init__(self, core, p: int, Bb: int, **kw):
+        super().__init__(core, p, Bb, **kw)
+        n, dev = self.n, self.dev
+        self.tok = _i32((n, Bb, 1), dev)
         self.out = torch.zeros_like(self.tok)
         if self.paged:
-            self.pos = _i32((E, core.max_len), dev)
-            self.t = _i32((E,), dev)
+            self.pos = _i32((n, core.max_len), dev)
+            self.t = _i32((n,), dev)
 
     # -- the step --------------------------------------------------------
     def step(self, w) -> torch.Tensor:
-        """Advance wave ``w`` one decode step. Returns its new (E, Bb, 1)
-        int32 token plane in a tensor of its own: the static output is
-        overwritten by the next replay, and planes wait on the device
-        until harvest."""
+        """Advance the position's slice of wave ``w`` one decode step.
+        Returns its new (E/n, Bb, 1) int32 token plane in a tensor of its
+        own: the static output is overwritten by the next replay, and
+        planes wait on the device until harvest."""
+        p = self.p
         if self.paged:
-            self.table.copy_(w.table)
-            self.pos.copy_(w.pos)
-            self.t.copy_(w.t)
+            self.table.copy_(w.table[p])
+            self.pos.copy_(w.pos[p])
+            self.t.copy_(w.t[p])
         else:
             self._make_resident(w)
-        self.tok.copy_(w.tok)
+        self.tok.copy_(w.tok[p])
         self._run()
         if self.paged:
-            w.pos.copy_(self.pos)
-            w.t.copy_(self.t)
+            w.pos[p].copy_(self.pos)
+            w.t[p].copy_(self.t)
         return self.out.clone()
 
     def _body(self) -> None:
         core = self.core
         if self.paged:
-            logits = core._paged_decode(self.table, self.pos, self.t,
-                                        self.tok)
+            logits = core._paged_decode(self.p, self.table, self.pos,
+                                        self.t, self.tok)
         else:
-            logits = core._decode(self.state, self.tok)
+            logits = core._decode(self.p, self.state, self.tok)
         self.out.copy_(core._sample(logits))
 
 
 class VerifyGraph(_StepGraph):
-    """The speculative verify step of one ``EngineCore`` at batch bucket
-    ``Bb``, with ``k`` drafts a row (fixed per engine)."""
+    """The speculative verify step of one ``EngineCore``'s position ``p``
+    at batch bucket ``Bb``, with ``k`` drafts a row (fixed per
+    engine)."""
 
-    def __init__(self, core, Bb: int, k: int, **kw):
-        super().__init__(core, Bb, **kw)
-        E, dev = core.n_experts, core.device
+    def __init__(self, core, p: int, Bb: int, k: int, **kw):
+        super().__init__(core, p, Bb, **kw)
+        n, dev = self.n, self.dev
         self.k = k
-        self.tok = _i32((E, Bb), dev)
-        self.cap = _i32((E, Bb), dev)
-        self.pos = _i32((E, Bb, core.max_len), dev)
-        self.t = _i32((E, Bb), dev)
+        self.tok = _i32((n, Bb), dev)
+        self.cap = _i32((n, Bb), dev)
+        self.pos = _i32((n, Bb, core.max_len), dev)
+        self.t = _i32((n, Bb), dev)
         # greedy window (k + 1), advance, accepted drafts, next token
-        self.out = _i32((E, Bb, k + 4), dev)
+        self.out = _i32((n, Bb, k + 4), dev)
 
     def step(self, w) -> torch.Tensor:
-        """One verify of spec wave ``w``: its ``row_pos``/``row_t`` advance
-        in place and ``w.tok`` becomes the next feed token. Returns the
-        (E, Bb, k + 4) int32 plane [greedy window | adv | acc | next
-        token] in a tensor of its own."""
+        """One verify of the position's slice of spec wave ``w``: its
+        ``row_pos``/``row_t`` advance in place. Returns the (E/n, Bb, k +
+        4) int32 plane [greedy window | adv | acc | next token] in a
+        tensor of its own (the core takes the next feed token from
+        it)."""
+        p = self.p
         if self.paged:
-            self.table.copy_(w.table)
+            self.table.copy_(w.table[p])
         else:
             self._make_resident(w)
-        self.pos.copy_(w.row_pos)
-        self.t.copy_(w.row_t)
-        self.cap.copy_(w.cap)
-        self.tok.copy_(w.tok[..., 0])
+        self.pos.copy_(w.row_pos[p])
+        self.t.copy_(w.row_t[p])
+        self.cap.copy_(w.cap[p])
+        self.tok.copy_(w.tok[p][..., 0])
         self._run()
-        w.row_pos.copy_(self.pos)
-        w.row_t.copy_(self.t)
-        out = self.out.clone()
-        w.tok = out[..., self.k + 3:]
-        return out
+        w.row_pos[p].copy_(self.pos)
+        w.row_t[p].copy_(self.t)
+        return self.out.clone()
 
     def _body(self) -> None:
         self.out.copy_(self.core._verify(
-            self.state, self.table if self.paged else None, self.pos,
-            self.t, self.tok, self.cap, self.k))
+            self.p, self.state, self.table if self.paged else None,
+            self.pos, self.t, self.tok, self.cap, self.k))

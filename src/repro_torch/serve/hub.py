@@ -74,10 +74,10 @@ import torch
 
 from ..checkpoint import io as ckpt_io
 from ..core.registry import ExpertRegistry, ExpertSpec, bankable_arch
-from ..device import resolve_device
 from ..obs.trace import NULL_TRACER
 from ..tree import leaves, tree_map
-from .core import bucket_for
+from ..sharding import leading_sharding
+from .core import bank_positions, bucket_for
 from .placement import BankedEngine, BankHandle
 
 # ---------------------------------------------------------------------------
@@ -259,8 +259,10 @@ class ExpertHub:
     The hub owns one ``BankedEngine`` of ``n_slots`` slots and an
     unbounded catalog; ``acquire`` / ``pin`` / ``unpin`` are the
     scheduler's admission contract and ``service`` is the per-step
-    lifecycle round. Runs on ``cuda`` unless ``device="cpu"``; options
-    as ``BankedEngine``'s. ``store`` is the checkpoint store root
+    lifecycle round. Runs on ``cuda`` unless ``device="cpu"``, or over
+    ``mesh`` (its ``expert`` axis dividing ``n_slots``: slot ``s`` on
+    position ``s // (n_slots // n)``, where its tensors are made);
+    options as ``BankedEngine``'s. ``store`` is the checkpoint store root
     (read by the staging worker thread), ``host_cache`` bounds the staged host copies of
     store-backed experts, ``stage_timeout`` bounds a blocking
     ``service`` wait. Call ``close()`` (or use the hub as a context
@@ -283,24 +285,27 @@ class ExpertHub:
                 f"{model.cfg.family!r} capacity-dispatch MoE experts "
                 "cannot share a slot bank (outputs depend on batch "
                 "padding); serve them per-engine")
-        self.device = resolve_device(device)
+        _, devs = bank_positions(n_slots, mesh, device)
+        where = leading_sharding(n_slots, "expert", mesh)
+        self.device = devs[0]
         self.model = model
         self.n_slots = n_slots
         self.store = store
         self.stage_timeout = stage_timeout
         self.host_cache = host_cache
         # the params tree's shapes and dtypes (no storage): each slot gets
-        # zero tensors of its own, the tensors every commit writes into
-        # and every captured step reads
+        # zero tensors of its own on its position's device, the tensors
+        # every commit writes into and every captured step reads
         shapes = model.param_shapes()
-        slots = [tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
-                                                device=self.device), shapes)
-                 for _ in range(n_slots)]
+        slots = [tree_map(lambda s, d=devs[where[i] if where else 0]:
+                          torch.zeros(s.shape, dtype=s.dtype, device=d),
+                          shapes)
+                 for i in range(n_slots)]
         self.bank = BankedEngine(
             model, slots, max_len=max_len, min_len_bucket=min_len_bucket,
             batch_buckets=batch_buckets, mesh=mesh, kv_layout=kv_layout,
             page_size=page_size, pool_pages=pool_pages,
-            chunk_len=chunk_len, device=self.device)
+            chunk_len=chunk_len, device=device)
         core = self.bank.core
         paged = kv_layout == "paged"
         self.spec = ExpertSpec(
@@ -709,9 +714,10 @@ class ExpertHub:
 
     def _install(self, slot: int, params: Any) -> int:
         """Copy host ``params`` into slot ``slot``'s tensors in place, on
-        the current stream. On CUDA each source is pinned and copied
-        without blocking, and the pinned copies are kept until an event
-        recorded after the copies has completed. Returns bytes copied."""
+        the current stream of the slot's device. On CUDA each source is
+        pinned and copied without blocking, and the pinned copies are kept
+        until an event recorded after the copies on that stream has
+        completed. Returns bytes copied."""
         self._in_flight = [(ev, held) for ev, held in self._in_flight
                            if not ev.query()]
         dst, src = leaves(self.bank.params[slot]), leaves(params)
@@ -731,7 +737,7 @@ class ExpertHub:
             nbytes += d.numel() * d.element_size()
         if pinned:
             ev = torch.cuda.Event()
-            ev.record()
+            ev.record(torch.cuda.current_stream(dst[0].device))
             self._in_flight.append((ev, pinned))
         return nbytes
 

@@ -1,4 +1,5 @@
-"""Banked placement: homogeneous experts served by one engine core.
+"""Banked placement: homogeneous experts served by one engine core,
+laid out over a 1-D ``expert`` device mesh.
 
   * ``plan_placement`` walks an ``ExpertRegistry``, groups experts whose
     ``ExpertSpec`` is equal (same architecture, bucket ladders, KV layout
@@ -12,12 +13,17 @@
     member in one replay. That graph is the port's counterpart of the
     reference's single vmapped dispatch, so the bank takes its members'
     parameter tensors as they are: nothing is stacked or copied. The
-    bank holds ``len(batch_buckets)`` decode graphs in all, not per
-    member.
+    bank holds ``len(batch_buckets)`` decode graphs a mesh position, not
+    per member.
+  * with ``mesh`` (``launch.mesh.make_expert_mesh``, or an explicit
+    ``ExpertMesh``) each bank is split over the largest slice of the
+    mesh whose size divides it (``_bank_submesh``, the reference's), a
+    cursor moving each next bank onto other devices; the bank's members
+    move to their positions (a member already there is not copied) and
+    each position steps its own members in graphs of its own.
 
 A bank's tick computes every member, rows or not, as the reference's
-vmap does. There is no device mesh on one GPU: ``mesh`` other than None
-raises.
+vmap does.
 """
 from __future__ import annotations
 
@@ -27,14 +33,19 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core.registry import ExpertSpec
+from ..launch.mesh import ExpertMesh
+from ..sharding import leading_sharding
+from ..tree import tree_map
 from .core import EngineCore, EngineStats
 from .engine import EngineFacade, ExpertEngine
 
 
 class BankedEngine(EngineFacade):
     """E homogeneous experts behind one ``EngineCore``. Runs on ``cuda``
-    unless ``device="cpu"``; every member's params must live there and
-    are used in place. Options as ``ExpertEngine``'s."""
+    unless ``device="cpu"``, or over ``mesh`` (its ``expert`` axis
+    dividing E: member ``e`` on position ``e // (E // n)``); every
+    member's params must live on its device and are used in place.
+    Options as ``ExpertEngine``'s."""
 
     def __init__(self, model, params_list: Sequence[Any], *,
                  max_len: int = 256, min_len_bucket: int = 8,
@@ -54,6 +65,7 @@ class BankedEngine(EngineFacade):
             speculate_k=speculate_k, draft=draft, device=device,
             capture_decode=capture_decode))
         self.n_experts = self.core.n_experts
+        self.mesh = self.core.mesh
 
     @property
     def params(self) -> List[Any]:
@@ -127,6 +139,7 @@ class Shard:
     sid: int
     experts: Tuple[int, ...]            # global registry indices
     bank: Optional[BankedEngine] = None
+    devices: Tuple[Any, ...] = ()       # the bank's mesh positions
 
     @property
     def banked(self) -> bool:
@@ -137,31 +150,56 @@ class Shard:
 class PlacementPlan:
     shards: List[Shard]
     shard_of: Dict[int, int]            # expert index -> shard id
+    mesh: Any = None
 
     def describe(self, names: Optional[Sequence[str]] = None) -> str:
         lines = []
         for s in self.shards:
             label = ", ".join(names[e] if names else str(e)
                               for e in s.experts)
+            dev = (f" on {len(s.devices)} device(s)" if s.devices else "")
             kind = "bank" if s.banked else "solo"
-            lines.append(f"shard {s.sid} [{kind}]: {label}")
+            lines.append(f"shard {s.sid} [{kind}]{dev}: {label}")
         return "\n".join(lines)
+
+
+def _bank_submesh(n_experts: int, mesh, offset: int = 0):
+    """Largest-divisor slice of the expert mesh this bank can shard over.
+
+    ``offset`` rotates the device pool so successive banks land on
+    *disjoint* slices (wrapping once the pool is exhausted) instead of
+    all piling onto the mesh's first devices.
+    """
+    if mesh is None or "expert" not in mesh.shape:
+        return None, ()
+    devs = np.roll(np.asarray(mesh.devices).reshape(-1),
+                   -(offset % max(mesh.shape["expert"], 1)))
+    for d in range(min(len(devs), n_experts), 0, -1):
+        if n_experts % d == 0:
+            if d == 1:
+                return None, ()   # unsharded: the bank stays on its
+                #                   members' device, claims no position
+            return ExpertMesh(tuple(devs[:d])), tuple(devs[:d])
+    return None, ()
 
 
 def plan_placement(registry, *, mesh=None,
                    min_bank: int = 2) -> PlacementPlan:
-    """Group homogeneous ``ExpertEngine`` backends into ``BankedEngine``s.
+    """Group homogeneous ``ExpertEngine`` backends into ``BankedEngine``s
+    and lay the banks out over ``mesh`` (1-D ``expert`` axis, see
+    ``launch.mesh.make_expert_mesh``).
 
     Mutates ``registry`` in place: banked entries' backends become
     ``BankMember`` handles and every engine's spec is published on its
-    entry. A bank runs on its members' device with their
-    ``capture_decode``, and takes their params tensors without a copy.
-    Groups smaller than ``min_bank`` and other backends keep singleton
-    shards.
+    entry. A bank runs with its members' ``capture_decode`` and takes
+    their params tensors without a copy; without a mesh it runs on their
+    device. With a mesh, members group by spec alone (as the
+    reference's), each bank takes the slice ``_bank_submesh`` gives it
+    and its members' params move to their positions (``.to``: those
+    already there stay put); a bank no slice divides stays on its first
+    member's device. Groups smaller than ``min_bank`` and other backends
+    keep singleton shards.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not part of the single-GPU port")
     by_sig: Dict[Tuple[ExpertSpec, Any, bool], List[int]] = {}
     for e in range(len(registry)):
         backend = registry[e].backend
@@ -174,31 +212,46 @@ def plan_placement(registry, *, mesh=None,
             spec = backend.spec
             registry[e].spec = spec
             if spec.bankable:
-                # one bank per (spec, device, capture): a bank steps its
-                # members in one graph on one device
-                key = (spec, backend.device, backend.core.capture_decode)
+                # one bank per (spec, device, capture): without a mesh a
+                # bank steps its members on one device; with one, the
+                # plan places them
+                key = (spec, None if mesh is not None else backend.device,
+                       backend.core.capture_decode)
                 by_sig.setdefault(key, []).append(e)
 
     shards: List[Shard] = []
     shard_of: Dict[int, int] = {}
+    cursor = 0                      # rotates banks onto disjoint devices
     for experts in by_sig.values():
         if len(experts) < min_bank:
             continue
         engines = [registry[e].backend for e in experts]
         first = engines[0]
         paged = first.kv_layout == "paged"
+        submesh, devices = _bank_submesh(len(experts), mesh, cursor)
+        cursor += len(devices)
+        params, device = [eng.params for eng in engines], first.device
+        if mesh is not None:
+            home = first.params["embed"].device
+            where = leading_sharding(len(experts), "expert", submesh)
+            params = [tree_map(lambda t, d=(submesh.devices[where[i]]
+                                            if where else home): t.to(d), p)
+                      for i, p in enumerate(params)]
+            device = None if where else home
         bank = BankedEngine(
-            first.model, [eng.params for eng in engines],
+            first.model, params,
             max_len=first.max_len, min_len_bucket=first.len_buckets[0],
-            batch_buckets=first.batch_buckets, kv_layout=first.kv_layout,
+            batch_buckets=first.batch_buckets, mesh=submesh,
+            kv_layout=first.kv_layout,
             page_size=first.core.page if paged else 8,
             pool_pages=first.core.pool.n_pages if paged else None,
             chunk_len=first.core.chunk_len if paged else None,
             speculate_k=first.core.speculate_k,
-            draft=first.core.draft_name, device=first.device,
+            draft=first.core.draft_name, device=device,
             capture_decode=first.core.capture_decode)
         sid = len(shards)
-        shards.append(Shard(sid=sid, experts=tuple(experts), bank=bank))
+        shards.append(Shard(sid=sid, experts=tuple(experts), bank=bank,
+                            devices=devices))
         for local, e in enumerate(experts):
             registry[e].backend = BankMember(bank, local)
             shard_of[e] = sid
@@ -208,4 +261,4 @@ def plan_placement(registry, *, mesh=None,
         sid = len(shards)
         shards.append(Shard(sid=sid, experts=(e,)))
         shard_of[e] = sid
-    return PlacementPlan(shards=shards, shard_of=shard_of)
+    return PlacementPlan(shards=shards, shard_of=shard_of, mesh=mesh)

@@ -230,7 +230,7 @@ def test_token_planes_do_not_alias_the_static_output():
         np.testing.assert_array_equal(alone[u], serial[u], err_msg=str(u))
     st = eng.stats
     assert st.decode_compiles == 1 and st.decode_swaps > 0
-    assert eng.core._graphs[2].resident is None     # every wave retired
+    assert eng.core._graphs[2][0].resident is None  # every wave retired
 
 
 def test_swap_copies_the_resident_state_out_and_the_newcomer_in():
@@ -243,15 +243,15 @@ def test_swap_copies_the_resident_state_out_and_the_newcomer_in():
     core = eng.core
     w0 = core._active[0]
     eng.tick(defer=True)
-    g = core._graphs[2]
-    assert g.state is w0.cache and g.resident is w0
+    g = core._graphs[2][0]               # the one position's graph
+    assert g.state is w0.cache[0] and g.resident is w0
     eng.admit(u1, p1, m1, defer=True)
     w1 = core._active[1]
     t0 = int(g.state["t"][0])
     eng.tick(defer=True)                 # w0 replays, then w1 swaps in
-    assert g.resident is w1 and w0.cache is not g.state
-    assert int(w0.cache["t"][0]) == t0 + 1
-    assert int(g.state["t"][0]) == int(w1.cache["t"][0]) + 1
+    assert g.resident is w1 and w0.cache[0] is not g.state
+    assert int(w0.cache[0]["t"][0]) == t0 + 1
+    assert int(g.state["t"][0]) == int(w1.cache[0]["t"][0]) + 1
     assert core.stats.decode_swaps == 1
 
 
@@ -261,13 +261,13 @@ def test_paged_step_copies_pos_and_t_back_to_the_wave():
     eng.admit(u0, p0, m0, defer=True)
     eng.admit(u1, p1, m1, defer=True)
     w0, w1 = eng.core._active
-    t = [int(w.t[0]) for w in (w0, w1)]
+    t = [int(w.t[0][0]) for w in (w0, w1)]
     eng.tick(defer=True)
-    assert [int(w.t[0]) for w in (w0, w1)] == [t[0] + 1, t[1] + 1]
+    assert [int(w.t[0][0]) for w in (w0, w1)] == [t[0] + 1, t[1] + 1]
     for w, tt in ((w0, t[0]), (w1, t[1])):
-        assert int(w.pos[0, tt % MAX_LEN]) == tt
-    g = eng.core._graphs[2]
-    assert w0.pos.data_ptr() != g.pos.data_ptr()
+        assert int(w.pos[0][0, tt % MAX_LEN]) == tt
+    g = eng.core._graphs[2][0]
+    assert w0.pos[0].data_ptr() != g.pos.data_ptr()
     assert eng.stats.decode_swaps == 0
 
 
@@ -427,10 +427,10 @@ assert dead.stats.decode_captured == 1
 del dead
 live = engine()
 decode = live.core._decode
-def collecting(cache, tok):
+def collecting(p, cache, tok):
     if torch.cuda.is_current_stream_capturing():
         gc.collect()
-    return decode(cache, tok)
+    return decode(p, cache, tok)
 live.core._decode = collecting
 try:
     live.tick(defer=True)

@@ -313,8 +313,8 @@ def test_active_wave_blocks_eviction_even_when_pin_free(model, params4,
         hub.bank.core.draft = tserve.build_draft("table",
                                                  model.cfg.padded_vocab)
         hub.bank.core.draft_name = "table"
-        hub.bank.core.draft_state = hub.bank.core.draft.init_state(
-            torch.Generator().manual_seed(0), 1)
+        hub.bank.core.draft_state = [hub.bank.core.draft.init_state(
+            torch.Generator().manual_seed(0), 1)]
     hub.want(0)
     hub.service(block=True)
     rng = np.random.default_rng(0)
@@ -875,7 +875,7 @@ def test_cuda_stage_during_a_capture_leaves_it_valid(cuda, tmp_path):
         core, calls = hub.bank.core, []
         decode = core._decode
 
-        def body(cache, tok):
+        def body(p, cache, tok):
             calls.append(1)
             if len(calls) == 2:
                 # the capture: hand ex1 to the worker and wait (on the
@@ -886,7 +886,7 @@ def test_cuda_stage_during_a_capture_leaves_it_valid(cuda, tmp_path):
                     if hub.catalog[1].state == "staged":
                         break
                     threading.Event().wait(0.01)
-            return decode(cache, tok)
+            return decode(p, cache, tok)
         core._decode = body
         hub.bank.admit({0: ([0, 1], prompts, [8, 8])}, defer=True)
         while hub.bank.n_active:

@@ -10,6 +10,8 @@ tokens and spec counters with the draft state carried across by
 ``bridge.copy_to_torch``. Weights are ``smollm_135m`` reduced, made by
 JAX from a seed and bridged with ``bridge.to_torch``.
 """
+import types
+
 import jax
 import numpy as np
 import pytest
@@ -130,15 +132,23 @@ def test_bank_uses_member_tensors_and_one_core(fleet):
 
 def test_spec_bankability_and_refusals(fleet):
     """Capacity-dispatch MoE specs are not bankable (as the reference's,
-    whose planner leaves such engines solo); a mesh is refused."""
+    whose planner leaves such engines solo); a mesh that does not divide
+    a bank raises the reference's ``ValueError``, an object that is no
+    mesh an ``AttributeError``."""
     _, treg = _regs(fleet)
     cfg = tget("mixtral_8x22b").reduced(name="moe-spec")
     assert cfg.n_experts and cfg.moe_impl == "dispatch"
     spec = tcore.ExpertSpec(arch=cfg.replace(name=""), max_len=64,
                             len_buckets=(8, 64), batch_buckets=(1, 16))
     assert not spec.bankable and treg[0].backend.spec.bankable
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(AttributeError, match="shape"):
         tserve.plan_placement(treg, mesh=object())
+    with pytest.raises(ValueError, match="must divide the bank's 2 experts"):
+        tserve.BankedEngine(fleet[5], [treg[e].backend.params
+                                       for e in range(2)],
+                            mesh=types.SimpleNamespace(
+                                shape={"expert": 3}, devices=("cpu",) * 3),
+                            device="cpu")
     with pytest.raises(ValueError, match="at least one expert"):
         tserve.BankedEngine(fleet[5], [], device="cpu")
 
@@ -266,7 +276,7 @@ def test_speculative_bank_matches_reference(spec_pair, kv, k):
     tp = [to_torch(p, device="cpu") for p in params]
     tb = tserve.BankedEngine(tmod, tp, kv_layout=kv, speculate_k=k,
                              draft="mlp", device="cpu", **geom)
-    copy_to_torch(tb.core.draft_state, jax.device_get(jb.core.draft_state))
+    copy_to_torch(tb.core.draft_state, [jax.device_get(jb.core.draft_state)])
     plain = tserve.BankedEngine(tmod, tp, device="cpu", **geom)
     want = _run_banked(jb, _banked_waves())
     got = _run_banked(tb, _banked_waves())

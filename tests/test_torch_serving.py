@@ -16,6 +16,7 @@ from repro_torch import core as tcore
 from repro_torch import serve as tserve
 from repro_torch.bridge import to_torch
 from repro_torch.configs import get_config as tget
+from repro_torch.launch.mesh import ExpertMesh
 from repro_torch.models import build_model as tbuild
 
 ARCHS = ["smollm_135m", "llama3_2_1b"]
@@ -152,17 +153,23 @@ def test_generate_does_not_steal_scheduler_rows():
 
 
 def test_later_slice_options_raise():
-    """Banked placement and the hub are ported (A9); what stays out
-    raises: a device mesh (not part of the single-GPU port). Every A10
-    family builds: Zamba2 (A10.3) and the encoder-decoder (A10.4)."""
+    """Banked placement, the hub and the expert mesh are ported (A9,
+    A12): an object that is no mesh raises an ``AttributeError``, a mesh
+    that does not divide the slot bank the reference's ``ValueError``.
+    Every A10 family builds: Zamba2 (A10.3) and the encoder-decoder
+    (A10.4)."""
     tmod = tbuild(tget("smollm_135m").reduced(name="later"))
     reg = tcore.ExpertRegistry()
-    reg.add("a", tserve.ExpertEngine(tmod, tmod.init(0, device="cpu"),
-                                     max_len=64, device="cpu"))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    for name in ("a", "b"):              # one bank, laid out over the mesh
+        reg.add(name, tserve.ExpertEngine(tmod, tmod.init(0, device="cpu"),
+                                          max_len=64, device="cpu"))
+    with pytest.raises(AttributeError, match="shape"):
         tserve.plan_placement(reg, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(AttributeError, match="shape"):
         tserve.ExpertHub(tmod, n_slots=1, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="must divide the bank's 3"):
+        tserve.ExpertHub(tmod, n_slots=3, mesh=ExpertMesh(("cpu",) * 2),
+                         device="cpu")
     assert tbuild(tget("seamless_m4t_large_v2").reduced(
         name="now-encdec")).cfg.family == "encdec"
     assert tbuild(tget("zamba2_7b").reduced(

@@ -72,7 +72,7 @@ def _pair(tiny, **kw):
     je, te = _jax(tiny, **kw), _port(tiny, **kw)
     if te.core.draft_name == "mlp":
         copy_to_torch(te.core.draft_state,
-                      jax.device_get(je.core.draft_state))
+                      [jax.device_get(je.core.draft_state)])
     return je, te
 
 
@@ -173,7 +173,7 @@ def test_spec_identity_across_waves(tiny):
     assert te.stats.verify_steps > 0
     _same_counters(te, je)
     np.testing.assert_array_equal(
-        te.core.draft_state["table"].numpy(),
+        te.core.draft_state[0]["table"].numpy(),
         np.asarray(je.core.draft_state["table"]))
 
 
