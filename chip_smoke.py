@@ -5,6 +5,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
+(``--only breakdown_moe,train_lm,train_sharded`` runs the env phase and
+those phases alone and prints no result line: copied to the root of a
+second tree, it times both trees' code in one call.)
+
 Phases, each printing one JSON line:
 
 1. env — torch / CUDA versions, the card's name and power limit, and the
@@ -232,6 +236,19 @@ Phases, each printing one JSON line:
    tokens against the bf16 peak, peak memory; losses finite and falling;
    no kernel launched. Then one ``make_train_step`` of each, reduced and
    f32, on the card against the CPU: loss, gradients and updated params.
+13a. train_sharded — the same full-width ``llama3_2_1b`` step (bf16,
+   remat, 2 microbatches, clip 1.0, seq 128 x batch 8) as DTensors on
+   the 1 x 1 ``data`` x ``model`` host mesh (``make_host_mesh``: a
+   one-rank NCCL group) with ``fsdp`` specs, against the unsharded step
+   from the same init and batch: loss within 1e-4, params max |diff|
+   within 5e-4, AdamW's moments within 1e-4 of each leaf's scale, every
+   state leaf back in its placements, no kernel launched; both steps'
+   wall ms, twice each. With four cards, also ``tests/_sharded_worker.py``
+   on a (2, 2) NCCL mesh of four ranks (reduced f32 llama, 2
+   microbatches, and a reduced capacity-dispatch olmoe on ``fsdp`` specs
+   grouped by its ``data`` axis) against the plain step on the first
+   card; with fewer, the line ``{"multi_card": "skipped: <n>
+   device(s)"}``.
 14. launch_serve — the serving launcher ``repro_torch.launch.serve.main``
    on its default device (the card), twice: the reference launcher's
    family cycle (reduced RWKV6, Zamba2, smollm, qwen2_72b, and llama in
@@ -311,7 +328,26 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def main() -> int:
+#: the phases ``--only`` can run on their own
+ONLY = ("breakdown_moe", "train_lm", "train_sharded")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="On-chip smoke test of the "
+                                 "PyTorch port; with no arguments, every "
+                                 "phase.")
+    ap.add_argument("--only", type=lambda v: v.split(","), default=None,
+                    help=f"comma-separated phases of {', '.join(ONLY)}: "
+                    "the env phase and these alone, in that order, then "
+                    "the nvidia-smi line and no result line (to time two "
+                    "trees of the repo in one call, each with this script "
+                    "at its root)")
+    args = ap.parse_args(argv)
+    if args.only and not set(args.only) <= set(ONLY):
+        ap.error(f"--only takes phases of {', '.join(ONLY)}")
+
     import numpy as np
     import torch
 
@@ -337,6 +373,8 @@ def main() -> int:
           "device_count": torch.cuda.device_count(),
           "kernel_build_s": build_s, "nvcc_build_s": build.build_seconds})
 
+    if args.only:
+        return only_phases(np, torch, dev, ops, args.only, smi)
     emit(reference_phase(np, torch, dev))
     emit(encdec_reference(np, torch, dev))
     serve, shapes = serve_phase(np, torch, dev, ops)
@@ -425,6 +463,7 @@ def main() -> int:
     bank = train_bank_phase(np, torch, dev, ops, make_timers(torch, dev)[1])
     emit(bank)
     emit(train_lm_phase(np, torch, dev, ops))
+    emit(train_sharded_phase(np, torch, dev, ops))
     emit(launch_serve_phase(np, torch, dev, ops))
     examples = examples_phase(np, torch, dev, ops)
     emit(examples)
@@ -443,6 +482,31 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+    return 0
+
+
+def only_phases(np, torch, dev, ops, names, smi) -> int:
+    """``--only``: each named phase alone, breakdown_moe on the seeded
+    olmoe weights of serve_moe's first expert."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    for name in names:
+        if name == "breakdown_moe":
+            cfg = get_config("olmoe_1b_7b")
+            model = build_model(cfg)
+            params = model.init(torch.Generator(device=dev)
+                                .manual_seed(SEED + 80), device=dev)
+            emit(breakdown_moe_phase(np, torch, dev, {
+                "cfg": cfg, "model": model, "params": params}))
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            phase = {"train_lm": train_lm_phase,
+                     "train_sharded": train_sharded_phase}[name]
+            emit(phase(np, torch, dev, ops))
+    print(smi, flush=True)
     return 0
 
 
@@ -5232,6 +5296,204 @@ def lm_step_check(np, torch, dev, arch, S, tol):
             "grad_tol": f"{tol} x (|cpu| + max|cpu|) per leaf",
             "params": params, "router_calls": len(logs["cpu"]),
             "router_flips": flips}
+
+
+SHARDED_TOL = {"loss": 1e-4, "params": 5e-4, "moments_rel": 1e-4}
+
+
+def train_sharded_phase(np, torch, dev, ops):
+    """One ``make_train_step`` of full-width ``llama3_2_1b`` as train_lm
+    runs it (bf16, remat, 2 microbatches, clip 1.0, lr 1e-3, seq 128 x
+    batch 8), unsharded and then as DTensors on the host mesh with
+    ``fsdp`` specs, from the same init and batch; each twice (the first
+    sharded step pays DTensor's sharding propagation). Held: loss within
+    1e-4, params max |diff| within 5e-4, AdamW's moments within 1e-4 of
+    each leaf's max |plain|, every state leaf back in its placements, no
+    kernel launched. Then the multi-card case, or the line saying why it
+    is skipped."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_token_stream
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant_lr
+    from repro_torch.sharding import mesh_context
+    from repro_torch.train import (init_train_state, make_train_step,
+                                   shard_batch, shard_train_state)
+    from repro_torch.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3_2_1b")
+    model = build_model(cfg)
+    state = init_train_state(model, torch.Generator(device=dev)
+                             .manual_seed(SEED), device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+        synthetic_token_stream(cfg.vocab_size, LM_SEQ, LM_BATCH,
+                               seed=SEED)).items()}
+    step = make_train_step(model, lr_fn=constant_lr(LM_LR), clip_norm=1.0,
+                           microbatches=2)
+
+    def timed(st, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, met = step(st, b)
+        loss = met["loss"]
+        loss = float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                     else loss)
+        torch.cuda.synchronize()
+        return new, loss, (time.perf_counter() - t0) * 1e3
+
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    new, loss_plain, ms_plain = timed(state, batch)
+    # the plain step's moments wait in host memory (10 GB off the card)
+    want = {"params": new["params"],
+            "opt": _tree(new["opt"], lambda t: t.cpu())}
+    del new
+    ms_plain = [ms_plain, timed(state, batch)[2]]
+    mesh = make_host_mesh(dev)
+    try:
+        with mesh_context(mesh):
+            sst = shard_train_state(state, mesh, fsdp=True)
+            sbatch = shard_batch(batch, mesh)
+            got, loss_sharded, ms_sharded = timed(sst, sbatch)
+            kept = all(tuple(a.placements) == tuple(b.placements)
+                       for a, b in zip(leaves(got), leaves(sst)))
+            # params max |diff|; AdamW's moments (the clipped gradient and
+            # its square) max |diff| over each leaf's max |plain|
+            diff, n_diff = {}, {}
+            for part, g, w in (("params", got["params"], want["params"]),
+                               ("m", got["opt"]["m"], want["opt"]["m"]),
+                               ("v", got["opt"]["v"], want["opt"]["v"])):
+                diff[part], n_diff[part] = 0.0, 0
+                for a, b in zip(leaves(g), leaves(w)):
+                    b = b.to(dev)
+                    d = (a.to_local().float() - b.float()).abs()
+                    scale = 1.0 if part == "params" else max(
+                        float(b.float().abs().max()), 1e-30)
+                    diff[part] = max(diff[part], float(d.max()) / scale)
+                    n_diff[part] += int((d > 0).sum())
+            del got
+            ms_sharded = [ms_sharded, timed(sst, sbatch)[2]]
+        sharded = sorted({str(tuple(x.placements)) for x in leaves(sst)})
+        peak = torch.cuda.max_memory_allocated()
+        del sst, sbatch
+    finally:
+        dist.destroy_process_group()
+    del want, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(ops.launches().values()):
+        raise AssertionError(f"train_sharded: a kernel launched in a "
+                             f"train step: {ops.launches()}")
+    if not kept:
+        raise AssertionError("train_sharded: a state leaf left its "
+                             "placements")
+    if not (abs(loss_sharded - loss_plain) <= SHARDED_TOL["loss"]
+            and diff["params"] <= SHARDED_TOL["params"]
+            and max(diff["m"], diff["v"]) <= SHARDED_TOL["moments_rel"]):
+        raise AssertionError(f"train_sharded: loss {loss_sharded} vs "
+                             f"{loss_plain}, max |diff| {diff}")
+    out = {"phase": "train_sharded", "config": cfg.name,
+           "dtype": cfg.param_dtype, "remat": cfg.remat, "microbatches": 2,
+           "seq": LM_SEQ, "batch": LM_BATCH, "mesh": {"data": 1, "model": 1},
+           "fsdp": True, "state_placements": sharded,
+           "loss_plain": loss_plain, "loss_sharded": loss_sharded,
+           "loss_abs_diff": abs(loss_sharded - loss_plain),
+           "params_max_abs_diff": diff["params"],
+           "moments_max_rel_diff": {"m": diff["m"], "v": diff["v"]},
+           "n_differ": n_diff,
+           "tol": SHARDED_TOL, "ms_plain": ms_plain,
+           "ms_sharded": ms_sharded, "peak_gb": peak / 1e9,
+           "launches": ops.launches()}
+    n = torch.cuda.device_count()
+    if n >= 4:
+        out["multi_card"] = multi_card_case(np, torch, dev, (2, 2))
+    else:
+        out["multi_card"] = f"skipped: {n} device(s)"
+        print(json.dumps({"multi_card": out["multi_card"]}), flush=True)
+    return out
+
+
+def multi_card_case(np, torch, dev, shape):
+    """``tests/_sharded_worker.py``'s cases over NCCL on a ``shape`` mesh
+    of cards, one rank a card, from seeded inits and batches: each
+    against the plain step on ``dev`` under a mesh of the same axis
+    sizes (its MoE groups tokens by ``data`` as the sharded one does):
+    the loss and params at ``SHARDED_TOL``, the moments at its relative
+    bound, every state leaf back in its placements."""
+    import importlib.util
+    import tempfile
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant_lr
+    from repro_torch.sharding import mesh_context
+    from repro_torch.sharding.rules import leaf_paths
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    path = os.path.join(ROOT, "tests", "_sharded_worker.py")
+    spec = importlib.util.spec_from_file_location("_sharded_worker", path)
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    rng = np.random.default_rng(SEED)
+    arrays, plain = {"meta": json.dumps(worker.CASES)}, {}
+    for case, (arch, widths, mb, _) in worker.CASES.items():
+        model = build_model(get_config(arch).reduced(**widths))
+        state = init_train_state(model, torch.Generator(device=dev)
+                                 .manual_seed(SEED), device=dev)
+        tokens = rng.integers(0, model.cfg.vocab_size, (8, 32),
+                              dtype=np.int32)
+        arrays[f"{case}/tokens"] = tokens
+        arrays[f"{case}/labels"] = np.roll(tokens, -1, axis=1)
+        for p, x in zip(leaf_paths(state["params"]),
+                        leaves(state["params"])):
+            arrays[f"{case}/init/{p}"] = x.cpu().numpy()
+        batch = {k: torch.from_numpy(arrays[f"{case}/{k}"]).to(dev)
+                 for k in ("tokens", "labels")}
+        step = make_train_step(model, lr_fn=constant_lr(1e-3),
+                               clip_norm=1.0, microbatches=mb)
+        with mesh_context(SimpleNamespace(
+                shape=dict(zip(("data", "model"), shape)))):
+            new, met = step(state, batch)
+        plain[case] = (float(met["loss"]), {
+            part: dict(zip(leaf_paths(tree), (x.cpu().numpy()
+                                              for x in leaves(tree))))
+            for part, tree in (("new", new["params"]),
+                               ("m", new["opt"]["m"]),
+                               ("v", new["opt"]["v"]))})
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "in.npz"), os.path.join(tmp, "out.npz")
+        np.savez(src, **arrays)
+        subprocess.run([sys.executable, path, src, out, "cuda",
+                        "x".join(map(str, shape))], check=True, timeout=600,
+                       env=dict(os.environ,
+                                PYTHONPATH=os.path.join(ROOT, "src")))
+        got = dict(np.load(out))
+    for case, (loss, ref) in plain.items():
+        r = {"loss": float(got[f"{case}/loss"]), "loss_plain": loss,
+             "kept": bool(got[f"{case}/kept"])}
+        r["loss_abs_diff"] = abs(r["loss"] - loss)
+        r["params_max_abs_diff"] = max(
+            float(np.abs(got[f"{case}/new/{p}"] - w).max())
+            for p, w in ref["new"].items())
+        r["moments_max_rel_diff"] = {part: max(
+            float(np.abs(got[f"{case}/{part}/{p}"] - w).max()
+                  / max(float(np.abs(w).max()), 1e-30))
+            for p, w in ref[part].items()) for part in ("m", "v")}
+        if not (r["kept"] and r["loss_abs_diff"] <= SHARDED_TOL["loss"]
+                and r["params_max_abs_diff"] <= SHARDED_TOL["params"]
+                and max(r["moments_max_rel_diff"].values())
+                <= SHARDED_TOL["moments_rel"]):
+            raise AssertionError(f"multi_card {case}: {r}")
+        res[case] = r
+    return {"mesh": dict(zip(("data", "model"), shape)), "device": "cuda",
+            "cases": res}
 
 
 def _record_decode(core, seen):

@@ -1,19 +1,31 @@
-"""The 1-D ``expert`` mesh that banked serving places experts on.
+"""Meshes: the ``data`` x ``model`` (x ``pod``) meshes of training and
+the 1-D ``expert`` mesh that banked serving places experts on.
 
-The reference's ``launch/mesh.py`` builds JAX meshes; its ``expert``
-mesh spans every visible device, and ``serve.placement`` shards each
-bank's stacked params, caches and token planes along it. Here a mesh is
-a plain tuple of devices: a bank's members are independent experts and
-no collective crosses the axis, so one process drives every position,
-each with its own tensors and its own captured steps.
+The reference's ``launch/mesh.py`` builds JAX meshes. Its production
+meshes (16 x 16 over ``data``, ``model``; 2 x 16 x 16 with ``pod``) and
+its 1 x 1 host mesh become ``torch.distributed`` ``DeviceMesh``es with
+the same dim names, over which ``sharding.rules`` lays params out as
+DTensors. A ``DeviceMesh`` spans the ranks of a process group: the
+caller starts the group (``torch.distributed.init_process_group`` with
+its own address, world size and rank), except for the host mesh, which
+starts a one-rank group itself.
+
+The ``expert`` mesh spans every visible device, and ``serve.placement``
+shards each bank's stacked params, caches and token planes along it.
+There a mesh is a plain tuple of devices: a bank's members are
+independent experts and no collective crosses the axis, so one process
+drives every position, each with its own tensors and its own captured
+steps.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..device import DeviceLike, resolve_device
 
@@ -65,3 +77,47 @@ def make_expert_mesh(device: DeviceLike = None) -> ExpertMesh:
         return ExpertMesh((dev,))
     return ExpertMesh(tuple(torch.device("cuda", i)
                             for i in range(torch.cuda.device_count())))
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              device: DeviceLike = None) -> DeviceMesh:
+    """A ``DeviceMesh`` of ``shape`` with dim names ``axes`` over the
+    ranks of the default process group (``compat_make_mesh``): on
+    ``cuda``, or on the CPU when ``device="cpu"``."""
+    dev = resolve_device(device)
+    return init_device_mesh(dev.type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def mesh_devices_required(multi_pod: bool) -> int:
+    return 512 if multi_pod else 256
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: DeviceLike = None) -> DeviceMesh:
+    """(data 16, model 16), or (pod 2, data 16, model 16) with
+    ``multi_pod``: the reference's production meshes, over a process
+    group of ``mesh_devices_required(multi_pod)`` ranks."""
+    need = mesh_devices_required(multi_pod)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have != need:
+        raise ValueError(
+            f"the {'multi-pod' if multi_pod else 'single-pod'} production "
+            f"mesh needs a process group of mesh_devices_required("
+            f"{multi_pod}) = {need} ranks, found {have}")
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def make_host_mesh(device: DeviceLike = None) -> DeviceMesh:
+    """1 x 1 ``data`` x ``model`` mesh (everything replicated), on
+    ``cuda`` unless ``device="cpu"``. Without a process group it starts
+    a one-rank group on an in-process store (gloo on the CPU, NCCL on
+    the card); ``torch.distributed.destroy_process_group()`` ends it."""
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return make_mesh((1, 1), ("data", "model"), dev)

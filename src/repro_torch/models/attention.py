@@ -15,6 +15,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..sharding.context import local_apply, mesh_shape
 
 NEG_INF = -1e30
 
@@ -65,6 +68,16 @@ def attention(q, k, v, *, q_pos, kv_pos, window: int = 0, chunk: int = 0,
     path only. Returns (B, Sq, H, dh) in q.dtype. ``chunk`` selects the
     blockwise online-softmax path when it tiles Sk.
     """
+    if isinstance(q, DTensor):
+        # a sharded step: each rank attends over its own rows, and over
+        # its own heads where the model axis divides the KV heads (then
+        # query head h stays with KV head h // G on one rank)
+        model = mesh_shape(q.device_mesh).get("model", 1)
+        heads = "model" if k.shape[2] % model == 0 else None
+        spec = (("pod", "data"), None, heads, None)
+        return local_apply(lambda q, k, v: attention(
+            q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window,
+            chunk=chunk, causal=causal), (spec, spec, spec), q, k, v)
     Sq, Sk = q.shape[1], k.shape[1]
     scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))
     if chunk and Sq > 1 and Sk > chunk and Sk % chunk == 0:

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..sharding.context import replicate_dim
 
 DTYPES = {
     "float32": torch.float32,
@@ -262,11 +263,17 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None
     """Mean cross-entropy; logits (..., V) any dtype (the padded vocab: the
     logsumexp runs over every column, as the reference's does), reduction
     in f32. ``mask`` (labels' shape) weights each position."""
-    logits = logits.float()
+    # DTensor's vocab-parallel gather (_MaskPartial) fails on logits
+    # sharded over the vocab: gather the gold logit from replicated ones
+    logits = replicate_dim(logits.float(), logits.ndim - 1)
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = lse - gold
     if mask is not None:
         mask = mask.float()
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll.mean()
+        out = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    else:
+        out = nll.mean()
+    # DTensor's backward of a Partial(avg) mean added to a replicated
+    # term (the balance loss) views a strided gradient: reduce it here
+    return replicate_dim(out)

@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attention import decode_attention
 from ..kernels.paged_decode_attention import paged_decode_attention
+from ..sharding import shard_act
 from .api import BaseModel, register_family
 from .attention import (attention, cache_prefill, init_kv_cache,
                         last_writer, paged_append, paged_append_rows,
@@ -58,6 +59,8 @@ from .attention import (attention, cache_prefill, init_kv_cache,
 from .common import (ArchConfig, apply_rope, dense_init, dt, embed_init,
                      init_device, rmsnorm, softmax_xent, stack_views)
 from .moe import init_moe, moe_ffn
+
+BATCH = ("pod", "data")
 
 
 def _init_layers(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict:
@@ -100,6 +103,8 @@ def _qkv(h, lp, cfg: ArchConfig, positions):
         v = v + lp["bv"]
     q = apply_rope(q.reshape(B, S, H, dh), positions, cfg.rope_theta)
     k = apply_rope(k.reshape(B, S, KV, dh), positions, cfg.rope_theta)
+    q = shard_act(q, (BATCH, None, "model", None))
+    k = shard_act(k, (BATCH, None, "model", None))
     return q, k, v.reshape(B, S, KV, dh)
 
 
@@ -126,7 +131,11 @@ def _layer_full(x, lp, cfg: ArchConfig, positions):
     x = x + (o.reshape(B, S, -1) @ lp["wo"]).to(x.dtype)
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     y, aux = _ffn(h2, lp, cfg, dropless=False)
-    return x + y.to(x.dtype), (k, v), aux
+    # sequence parallelism: between TP blocks the residual stream is
+    # sharded along seq over `model` (Korthikanti et al.)
+    x = shard_act(x + y.to(x.dtype),
+                  (BATCH, "model" if cfg.seq_parallel else None, None))
+    return x, (k, v), aux
 
 
 def _layer_suffix(x, lp, cfg: ArchConfig, positions, pk, pv, offset):
@@ -141,7 +150,9 @@ def _layer_suffix(x, lp, cfg: ArchConfig, positions, pk, pv, offset):
     x = x + (o.reshape(B, S, -1) @ lp["wo"]).to(x.dtype)
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     y, _ = _ffn(h2, lp, cfg, dropless=False, with_aux=False)
-    return x + y.to(x.dtype), (k, v)
+    x = shard_act(x + y.to(x.dtype),
+                  (BATCH, "model" if cfg.seq_parallel else None, None))
+    return x, (k, v)
 
 
 def _layer_decode(x, lp, t, cfg: ArchConfig, write_attend):
@@ -212,7 +223,8 @@ class DecoderLM(BaseModel):
         x = params["embed"][batch["tokens"].long()].to(dt(cfg.compute_dtype))
         if cfg.n_stub_embeds and "stub_embeds" in batch:
             x = torch.cat([batch["stub_embeds"].to(x.dtype), x], dim=1)
-        return x
+        return shard_act(x, (BATCH, "model" if cfg.seq_parallel else None,
+                             None))
 
     def _unembed(self, params, x):
         w = (params["embed"].T if self.cfg.tie_embeddings

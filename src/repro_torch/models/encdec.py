@@ -32,11 +32,14 @@ from typing import Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding import shard_act
 from .api import BaseModel, register_family
 from .attention import attention, cache_prefill
 from .common import (ArchConfig, apply_rope, dense_init, dt, embed_init,
                      init_device, rmsnorm, softmax_xent, stack_views)
 from .dense import _ffn
+
+BATCH = ("pod", "data")
 
 
 def _init_attn(gen, cfg: ArchConfig, dtype, L: int) -> Dict:
@@ -85,6 +88,7 @@ def _mha(ap, xq, xkv, cfg: ArchConfig, *, q_pos, kv_pos, causal,
         q = apply_rope(q, q_pos, cfg.rope_theta)
     if rope_k:
         k = apply_rope(k, kv_pos, cfg.rope_theta)
+    q = shard_act(q, (BATCH, None, "model", None))
     o = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal,
                   chunk=chunk)
     return (o.reshape(B, Sq, H * dh) @ ap["wo"]).to(xq.dtype), k, v
@@ -155,7 +159,7 @@ class EncDecLM(BaseModel):
         dtype. With ``remat`` (the loss under ``cfg.remat``) each layer
         runs under ``torch.utils.checkpoint``."""
         cfg = self.cfg
-        x = frames.to(dt(cfg.compute_dtype))
+        x = shard_act(frames.to(dt(cfg.compute_dtype)), (BATCH, None, None))
         positions = _arange(x.shape[1], x.device)
         for lp in stack_views(params["enc_layers"]):
             x = (checkpoint(_enc_layer, x, lp, cfg, positions,
@@ -169,6 +173,7 @@ class EncDecLM(BaseModel):
         runs under ``torch.utils.checkpoint``)."""
         cfg = self.cfg
         x = params["embed"][tokens.long()].to(dt(cfg.compute_dtype))
+        x = shard_act(x, (BATCH, None, None))
         positions = _arange(x.shape[1], x.device)
         enc_positions = _arange(enc_out.shape[1], x.device)
         kvs = []

@@ -3,13 +3,15 @@
 Two implementations, selected by ``cfg.moe_impl``:
 
 * ``dispatch`` (GShard/Switch-style): top-k routing, a capacity-bounded
-  scatter into an (E, capacity, D) buffer, batched per-expert GEMMs
-  (``torch.bmm``), a weighted combine. One token group (G = 1: a single
-  card has no ``pod``/``data`` mesh axes). Prefill drops the tokens past
-  an expert's capacity, in the reference's order: assignments are
-  numbered row-major over (B, S) then over the k choices, and each
-  expert keeps its first ``cap``. A token's output therefore depends on
-  every other token of the call, padding included.
+  scatter into a (G, E, capacity, D) buffer, batched per-expert GEMMs
+  (``torch.bmm``), a weighted combine. The T tokens split into G groups
+  aligned with the ``pod`` x ``data`` mesh axes (G = 1 with no mesh, an
+  ``ExpertMesh``, or when G does not divide T), and capacity and slots
+  are counted within each group. Prefill drops the tokens past an
+  expert's capacity, in the reference's order: a group's assignments
+  are numbered row-major over its tokens then over the k choices, and
+  each expert keeps its first ``cap``. A token's output therefore
+  depends on every other token of its group, padding included.
 * ``dense``: every expert on every token, masked combine; the same math
   with no drops. The correctness oracle, and bankable.
 
@@ -25,7 +27,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.context import axis_size, local_apply, shard_act
 from .common import ArchConfig, dense_init
+
+BATCH = ("pod", "data")
 
 
 def init_moe(gen, cfg: ArchConfig, dtype, n_layers: int) -> Dict:
@@ -116,41 +121,93 @@ def capacity(cfg: ArchConfig, T: int, dropless: bool) -> int:
                       * cfg.experts_per_token / cfg.n_experts))
 
 
-def _moe_dispatch(params, x2d, w, ids, cfg: ArchConfig,
-                  dropless: bool = False):
-    """Capacity dispatch over one token group.
+def _scatter_groups(xg, idsg, E: int, cap: int):
+    """Each group's capacity scatter, groups batched on dim 0: xg (G, Tg,
+    D), idsg (G, Tg, k) -> (buf (G, E, cap, D), slot (G, Tg*k), keep
+    (G, Tg*k)).
 
     Assignment i = t * k + j (token t's j-th choice) takes slot ``mypos``
-    = the number of earlier assignments to its expert (an exclusive
-    cumsum over the one-hot, row-major); those at or past ``cap`` are
-    dropped. The reference scatters every assignment with an add, a
-    dropped one adding zero into slot cap-1; here kept assignments are
-    copied into their distinct slots and dropped ones into a trash row
-    past the buffer, which is the same buffer with no atomics. The
-    combine reads slot (e, dest) of each assignment times its weight
-    times ``keep``, and adds a token's k contributions in f32 in slot
-    order, as the reference's scatter-add does."""
-    T, D = x2d.shape
-    E, k = cfg.n_experts, cfg.experts_per_token
-    cap = capacity(cfg, T, dropless)
-    flat_e = ids.reshape(-1)                                # (T*k,)
-    flat_w = w.reshape(-1)
-    oh = F.one_hot(flat_e, num_classes=E)                   # (T*k, E)
-    pos = torch.cumsum(oh, dim=0) - oh                      # exclusive
-    mypos = pos.gather(1, flat_e[:, None])[:, 0]
+    = the number of earlier assignments of its group to its expert (an
+    exclusive cumsum over the one-hot, row-major within the group);
+    those at or past ``cap`` are dropped. The reference scatters every
+    assignment with an add, a dropped one adding zero into slot cap-1;
+    here kept assignments are copied into their distinct slots and
+    dropped ones into a trash row past the group's buffer, which is the
+    same buffer with no atomics."""
+    G, Tg, D = xg.shape
+    k = idsg.shape[-1]
+    flat_e = idsg.reshape(G, Tg * k)
+    oh = F.one_hot(flat_e, num_classes=E)                   # (G, Tg*k, E)
+    pos = torch.cumsum(oh, dim=1) - oh                      # exclusive
+    mypos = pos.gather(2, flat_e[..., None])[..., 0]
     keep = mypos < cap
     dest = torch.where(keep, mypos, torch.full_like(mypos, cap - 1))
-    slot = flat_e * cap + dest                              # (T*k,)
+    slot = flat_e * cap + dest                              # (G, Tg*k)
     trash = torch.full_like(slot, E * cap)
-    buf = x2d.new_zeros((E * cap + 1, D))
-    src = x2d[:, None].expand(T, k, D).reshape(T * k, D)  # token of each
-    buf.index_copy_(0, torch.where(keep, slot, trash), src)
-    yb = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"],
-                     buf[:E * cap].view(E, cap, D))
-    y_tok = yb.reshape(E * cap, D)[slot].float() \
-        * (flat_w * keep.float())[:, None]
-    y_tok = y_tok.view(T, k, D)
-    y = y_tok[:, 0]
+    row = E * cap + 1                                       # + trash row
+    buf = xg.new_zeros((G * row, D))
+    src = xg[:, :, None].expand(G, Tg, k, D).reshape(G * Tg * k, D)
+    into = torch.where(keep, slot, trash)
+    if G > 1:                       # each group's rows of the flat buffer
+        into = into + (torch.arange(G, device=xg.device) * row)[:, None]
+    buf.index_copy_(0, into.reshape(-1), src)
+    return buf.view(G, row, D)[:, :E * cap].reshape(G, E, cap, D), slot, keep
+
+
+def _combine_groups(yb, slot, wg, keep):
+    """Each group's weighted combine: slot (e, dest) of every assignment
+    of yb (G, E, cap, D), times its weight times ``keep``; a token's k
+    contributions added in f32 in choice order, as the reference's
+    scatter-add adds them. -> (G, Tg, D) f32."""
+    G, E, cap, D = yb.shape
+    Tg, k = wg.shape[1], wg.shape[2]
+    at = slot
+    if G > 1:                       # each group's rows of the flat buffer
+        at = at + (torch.arange(G, device=yb.device) * (E * cap))[:, None]
+    y_tok = yb.reshape(G * E * cap, D)[at.reshape(-1)].float() \
+        * (wg.reshape(-1) * keep.reshape(-1).float())[:, None]
+    y_tok = y_tok.view(G, Tg, k, D)
+    y = y_tok[:, :, 0]
     for j in range(1, k):
-        y = y + y_tok[:, j]
+        y = y + y_tok[:, :, j]
     return y
+
+
+def _group_local(fn, n_out: int, *args):
+    """``fn`` on each rank's own groups: every argument's group dim 0
+    over ``pod`` x ``data``, the counterpart of the reference's
+    group-local ``vmap`` on a data-sharded axis (DTensor has no sharded
+    rule for the data-dependent scatter and gather)."""
+    return local_apply(fn, [(BATCH,) + (None,) * (a.ndim - 1) for a in args],
+                       *args, n_out=n_out)
+
+
+def _moe_dispatch(params, x2d, w, ids, cfg: ArchConfig,
+                  dropless: bool = False):
+    """Hierarchical (grouped) capacity dispatch, GShard-style.
+
+    Tokens are split into G = ``pod`` x ``data`` groups (1 if that does
+    not divide T); capacity and slots are computed *within* each group,
+    so the scatter into the (G, E, cap, D) buffer and the combine are
+    group-local (``_group_local``), and the only cross-device traffic
+    left is the expert GEMM's own parallelism. The experts run as one
+    ``torch.bmm`` over every group's slots (E, G * cap, D)."""
+    T, D = x2d.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    G = max(1, axis_size("pod") * axis_size("data"))
+    if T % G:
+        G = 1
+    Tg = T // G
+    cap = capacity(cfg, Tg, dropless)
+    xg = shard_act(x2d.reshape(G, Tg, D), (BATCH, None, None))
+    wg = w.reshape(G, Tg, k)
+    bufs, slot, keep = _group_local(
+        lambda xs, i: _scatter_groups(xs, i, E, cap), 3, xg,
+        ids.reshape(G, Tg, k))
+    bufs = shard_act(bufs, (BATCH, "model", None, None))
+    xb = bufs.transpose(0, 1).reshape(E, G * cap, D)
+    yb = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"], xb)
+    yb = yb.reshape(E, G, cap, D).transpose(0, 1)
+    yb = shard_act(yb, (BATCH, "model", None, None))
+    y = _group_local(_combine_groups, 1, yb, slot, wg, keep)
+    return y.reshape(T, D)

@@ -27,10 +27,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.wkv_step import wkv_step, wkv_step_plain
+from ..sharding import shard_act
 from .api import BaseModel, register_family
 from .common import (ArchConfig, dense_init, dt, embed_init,
                      groupnorm_heads, init_device, rmsnorm, softmax_xent,
                      stack_views)
+
+BATCH = ("pod", "data")
 
 N_MIX = 5  # w, k, v, r, g ddlerp branches
 
@@ -165,6 +168,8 @@ def time_mix(lp, x, cfg: ArchConfig, x_prev, wkv_state, mode: str):
     lo = torch.tanh(xw.float() @ lp["decay_lora1"]) @ lp["decay_lora2"]
     w_raw = lp["decay_w0"].reshape(D) + lo
     logw = -torch.exp(w_raw).reshape(B, L, H, P)
+    r = shard_act(r, (BATCH, None, "model", None))
+    k = shard_act(k, (BATCH, None, "model", None))
     if mode == "step":
         o, S = wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0],
                         lp["first_u"], wkv_state, out_state=wkv_state)
@@ -199,7 +204,7 @@ def _layer_out(lp, x, cfg: ArchConfig, state, mode):
     x = x + o
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     o2, x_cm = channel_mix(lp, h2, state["x_cm"])
-    return x + o2, S, x_tm, x_cm
+    return shard_act(x + o2, (BATCH, None, None)), S, x_tm, x_cm
 
 
 def _layer(lp, x, cfg: ArchConfig, state, mode):
@@ -293,6 +298,7 @@ class RWKV6(BaseModel):
         where ``cfg.remat`` is set (the reference's ``jax.checkpoint``)."""
         cfg = self.cfg
         x = params["embed"][batch["tokens"].long()].to(dt(cfg.compute_dtype))
+        x = shard_act(x, (BATCH, None, None))
         zero = {k: v[0] for k, v in self.init_cache(
             x.shape[0], 1, device=x.device).items() if k != "t"}
 

@@ -28,6 +28,7 @@ from typing import Dict, List
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding import shard_act
 from ..tree import tree_map
 from .api import BaseModel, register_family
 from .attention import attention, cache_prefill, init_kv_cache
@@ -36,6 +37,8 @@ from .common import (dense_init, dt, embed_init, init_device, rmsnorm,
 from .dense import _init_layers as init_attn_layers
 from .dense import _layer_decode, _layer_full
 from .mamba2 import init_mamba_layer, mamba_seq, mamba_step
+
+BATCH = ("pod", "data")
 
 
 @register_family("hybrid")
@@ -98,7 +101,7 @@ class Zamba2(BaseModel):
             kv = None
             if with_attn:
                 x, kv, _ = _layer_full(x, shared, cfg, positions)
-            return x, kv, s_fin, h
+            return shard_act(x, (BATCH, None, None)), kv, s_fin, h
 
         for i, lp in enumerate(stack_views(params["layers"])):
             if collect:
@@ -125,6 +128,7 @@ class Zamba2(BaseModel):
         S) over the padded vocab: (ce, {"ce"})."""
         cfg = self.cfg
         x = params["embed"][batch["tokens"].long()].to(dt(cfg.compute_dtype))
+        x = shard_act(x, (BATCH, None, None))
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         x, _ = self._run_full(params, x, positions)

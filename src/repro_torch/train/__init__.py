@@ -1,3 +1,5 @@
-from .loop import Trainer, init_train_state, make_train_step
+from .loop import (Trainer, init_train_state, make_train_step, shard_batch,
+                   shard_train_state)
 
-__all__ = ["Trainer", "init_train_state", "make_train_step"]
+__all__ = ["Trainer", "init_train_state", "make_train_step", "shard_batch",
+           "shard_train_state"]

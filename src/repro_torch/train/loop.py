@@ -8,6 +8,17 @@ with state = {params, opt, step}: gradient microbatching (the gradients
 of each microbatch summed into f32 zeros, then divided by their count)
 and global-norm clipping included. It runs eagerly on the device the
 params live on; nothing in a step reads back to the host.
+
+Sharded training (the reference's ``jit`` with ``in_shardings`` /
+``out_shardings`` over a ``data`` x ``model`` mesh): lay the state and
+the batch out as DTensors with ``shard_train_state`` and
+``shard_batch``, then call the same step under ``mesh_context(mesh)``,
+which the models' ``shard_act`` constraints and the MoE's token groups
+read. A step on a DTensor state runs under DTensor's implicit
+replication, so the plain tensors the models make (positions, rope
+tables, masks) meet the params as replicated values, and puts every leaf
+of the new state back in its input placements, as ``out_shardings`` pins
+them. Its loss is a replicated DTensor: read it with ``full_tensor()``.
 """
 from __future__ import annotations
 
@@ -15,10 +26,14 @@ from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..device import resolve_device
 from ..models.api import BaseModel
 from ..optim import adamw_init, adamw_update, cosine_warmup
+from ..sharding.context import Spec
+from ..sharding.rules import batch_spec, distribute, param_specs
 from ..tree import leaves, tree_map, value_and_grad
 
 
@@ -30,16 +45,26 @@ def make_train_step(model: BaseModel, *, lr_fn=None,
     mb = microbatches or model.cfg.train_microbatches or 1
 
     def train_step(state, batch):
+        if not isinstance(state["step"], DTensor):
+            return _step(state, batch)
+        with implicit_replication():
+            new_state, metrics = _step(state, batch)
+        return tree_map(lambda new, old: new.redistribute(
+            old.device_mesh, old.placements), new_state, state), metrics
+
+    def _step(state, batch):
         params, opt = state["params"], state["opt"]
         bdim = leaves(batch)[0].shape[0]
         if mb > 1 and bdim % mb == 0:
-            gsum = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            lsum = torch.zeros((), dtype=torch.float32,
-                               device=leaves(params)[0].device)
+            gsum = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
+            lsum = torch.zeros_like(state["step"], dtype=torch.float32)
             for i in range(mb):
-                mbatch = {k: v.reshape((mb, bdim // mb) + v.shape[1:])[i]
-                          for k, v in batch.items()}
+                # rows i*n .. (i+1)*n, the reference's reshape(mb, n)[i]; a
+                # slice, which DTensor takes whether or not mb divides the
+                # data axis (the reshape it refuses then)
+                n = bdim // mb
+                mbatch = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
                 (loss, _), grads = value_and_grad(model.loss, params, mbatch)
                 tree_map(lambda s, g: s.add_(g), gsum, grads)
                 lsum = lsum + loss
@@ -56,6 +81,22 @@ def make_train_step(model: BaseModel, *, lr_fn=None,
         return new_state, {"loss": loss, "lr": lr}
 
     return train_step
+
+
+def shard_train_state(state: Dict, mesh, *, fsdp: bool = False) -> Dict:
+    """``state`` as DTensors over ``mesh``: params and both moments laid
+    out by ``param_specs`` (``fsdp`` as there), both ``step`` counters
+    replicated. Every rank passes the same state."""
+    ps = param_specs(state["params"], mesh, fsdp=fsdp)
+    specs = {"params": ps, "opt": {"m": ps, "v": ps, "step": Spec()},
+             "step": Spec()}
+    return distribute(state, specs, mesh)
+
+
+def shard_batch(batch: Dict, mesh) -> Dict:
+    """``batch`` as DTensors over ``mesh``, laid out by ``batch_spec``
+    (rows over ``pod`` x ``data``)."""
+    return distribute(batch, batch_spec(batch, mesh), mesh)
 
 
 def init_train_state(model: BaseModel, generator, device=None) -> Dict:
