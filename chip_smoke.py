@@ -249,6 +249,25 @@ Phases, each printing one JSON line:
    grouped by its ``data`` axis) against the plain step on the first
    card; with fewer, the line ``{"multi_card": "skipped: <n>
    device(s)"}``.
+13b. dryrun — after train_sharded: (i) the dry run's CLI,
+   ``python -m repro_torch.launch.dryrun`` on the card (fake tensors,
+   a fake process group of 256 ranks), ``qwen2_72b`` at published widths
+   at decode_32k at full depth, prefill_32k cut to 40 layers and
+   train_4k to 2 (16 microbatches through 80 layers take longer than
+   the phase's cap), three processes on the CPU while (ii) and (iii)
+   run on the card, each line ``ok``, its per-device peak against the
+   card's memory; (ii)
+   train_sharded's full-width ``llama3_2_1b`` step (seq 128 x batch 8, 2
+   microbatches) as a dry run on a one-rank fake group, against the same
+   step run for real on the 1 x 1 NCCL mesh: the predicted peak within
+   ``DRYRUN_PEAK_RTOL`` of ``torch.cuda.max_memory_allocated``, the
+   local flops equal to the real step's count, no collective in either;
+   (iii) serve_sharded: full-width ``llama3_2_1b`` params and cache as
+   DTensors on that mesh, a prefill of 8 prompts and 16 greedy decode
+   steps, tokens bit-equal to the plain path's, ``decode_attention``
+   launched 16 layers x 16 steps = 256 times in the sharded decode; the
+   same for ``rwkv6_7b`` at full width cut to 4 layers, ``wkv_step``
+   launched 4 x 16 = 64 times.
 14. launch_serve — the serving launcher ``repro_torch.launch.serve.main``
    on its default device (the card), twice: the reference launcher's
    family cycle (reduced RWKV6, Zamba2, smollm, qwen2_72b, and llama in
@@ -329,7 +348,7 @@ def emit(obj) -> None:
 
 
 #: the phases ``--only`` can run on their own
-ONLY = ("breakdown_moe", "train_lm", "train_sharded")
+ONLY = ("breakdown_moe", "train_lm", "train_sharded", "dryrun")
 
 
 def main(argv=None) -> int:
@@ -464,6 +483,7 @@ def main(argv=None) -> int:
     emit(bank)
     emit(train_lm_phase(np, torch, dev, ops))
     emit(train_sharded_phase(np, torch, dev, ops))
+    emit(dryrun_phase(np, torch, dev, ops))
     emit(launch_serve_phase(np, torch, dev, ops))
     examples = examples_phase(np, torch, dev, ops)
     emit(examples)
@@ -504,7 +524,8 @@ def only_phases(np, torch, dev, ops, names, smi) -> int:
             torch.cuda.empty_cache()
         else:
             phase = {"train_lm": train_lm_phase,
-                     "train_sharded": train_sharded_phase}[name]
+                     "train_sharded": train_sharded_phase,
+                     "dryrun": dryrun_phase}[name]
             emit(phase(np, torch, dev, ops))
     print(smi, flush=True)
     return 0
@@ -3482,7 +3503,7 @@ def breakdown_zamba_phase(np, torch, dev, zshapes):
     plain = build_model(cfg.replace(attn_every=0))
     no_apps, cache = tick(plain, {k: v for k, v in params.items()
                                   if k != "shared"})
-    lp = stack_views(params["layers"])[0]
+    lp = next(stack_views(params["layers"]))
     x = torch.randn((B, 1, cfg.d_model), device=dev).to(
         params["embed"].dtype)
     conv = {k: cache[f"conv_{k}"][0] for k in ("x", "B", "C")}
@@ -5415,6 +5436,290 @@ def train_sharded_phase(np, torch, dev, ops):
         out["multi_card"] = f"skipped: {n} device(s)"
         print(json.dumps({"multi_card": out["multi_card"]}), flush=True)
     return out
+
+
+#: the dry run's predicted peak against the real step's
+DRYRUN_PEAK_RTOL = 0.10
+#: seconds each dry-run CLI line may take
+DRYRUN_CLI_CAP_S = 420
+#: qwen2_72b's dry-run lines and the depth of each, at published widths:
+#: decode at full depth (80 layers); prefill cut to 40 and train (16
+#: microbatches through every layer) to 2, to keep the smoke well inside
+#: its limit (full-depth prefill took 71.5-106.9 s of the H100 host's
+#: CPU, train at 80 layers more than 420 s)
+DRYRUN_SHAPES = {"train_4k": 2, "prefill_32k": 40, "decode_32k": 0}
+SERVE_SHARDED_PROMPT, SERVE_SHARDED_STEPS = 64, 16
+#: config -> (layers, or None for its published depth; the decode kernel)
+SERVE_SHARDED = {"llama3_2_1b": (None, "decode_attention"),
+                 "rwkv6_7b": (4, "wkv_step")}
+
+
+def dryrun_phase(np, torch, dev, ops):
+    """(i) the dry-run CLI on the card, (ii) its accounting against a
+    real step, (iii) sharded serves through the decode kernels (see the
+    module docstring, 13b)."""
+    t0 = time.perf_counter()
+    out = {"phase": "dryrun"}
+    # the CLI's processes work on the CPU (fake tensors) while this one
+    # runs (ii) and (iii) on the card
+    procs = dryrun_cli_start()
+    try:
+        out["accounting"] = dryrun_accounting(np, torch, dev, ops)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["serve_sharded"] = serve_sharded(np, torch, dev, ops)
+    except BaseException:
+        for p in procs.values():
+            p.kill()
+            p.communicate()
+        raise
+    out["cli"] = dryrun_cli(torch, procs)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def dryrun_cli_start():
+    """``python -m repro_torch.launch.dryrun --arch qwen2-72b --shape S``
+    for each of ``DRYRUN_SHAPES`` (with ``--layers`` where it cuts the
+    depth), three processes started at once: {shape: process}."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return {s: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen2-72b", "--shape", s, "--layers", str(n)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for s, n in DRYRUN_SHAPES.items()}
+
+
+def dryrun_cli(torch, procs):
+    """The lines of ``dryrun_cli_start``'s processes, each within
+    ``DRYRUN_CLI_CAP_S`` of being read: every line ``ok``; its peak GB
+    against the card's memory."""
+    from repro_torch.launch.mesh import HW
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    rows = []
+    for s, p in procs.items():
+        t = time.perf_counter()
+        try:
+            so, se = p.communicate(timeout=DRYRUN_CLI_CAP_S)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+                q.communicate()
+            raise AssertionError(f"dryrun: {s} took more than "
+                                 f"{DRYRUN_CLI_CAP_S} s")
+        if p.returncode != 0:
+            raise AssertionError(f"dryrun: the CLI at {s} exited "
+                                 f"{p.returncode}: {se[-3000:]}")
+        r = json.loads([ln for ln in so.splitlines()
+                        if ln.startswith("{")][-1])
+        if r["status"] != "ok":
+            raise AssertionError(f"dryrun: {s}: {r}")
+        peak = r["memory"]["peak_bytes"]
+        rows.append({"shape": s, "status": r["status"],
+                     "n_layers": DRYRUN_SHAPES[s] or 80,
+                     "device": r["device"],
+                     "fsdp": r["fsdp"],
+                     "train_microbatches": r["train_microbatches"],
+                     "n_params": r["n_params"],
+                     "args_gb": r["memory"]["argument_bytes"] / 1e9,
+                     "params_gb": r["memory"]["param_bytes"] / 1e9,
+                     "state_gb": r["memory"]["state_bytes"] / 1e9,
+                     "peak_gb": peak / 1e9, "hbm_gb": total / 1e9,
+                     "peak_over_hbm": peak / total,
+                     "flops_per_device": r["flops_per_device"],
+                     "kernel_flops": r["kernel_flops"],
+                     "collectives_gb": {k: v / 1e9 for k, v in
+                                        r["collectives"].items()},
+                     "roofline": r["roofline"], "cli_s": r["compile_s"],
+                     "wait_s": time.perf_counter() - t})
+        print(json.dumps({"dryrun_cli": rows[-1]}), flush=True)
+    return {"hbm_bytes": total, "HW_hbm_bytes": HW["hbm_bytes"],
+            "rows": rows}
+
+
+def dryrun_accounting(np, torch, dev, ops):
+    """train_sharded's step (full-width bf16 ``llama3_2_1b``, remat, 2
+    microbatches, seq 128 x batch 8, ``fsdp`` specs) dry-run on a
+    one-rank fake group through ``build_dryrun``'s pieces, then the same
+    step for real on the 1 x 1 NCCL host mesh, both counted by
+    ``trace_step``: the predicted peak within ``DRYRUN_PEAK_RTOL`` of
+    ``max_memory_allocated`` over the real step (less what was allocated
+    before its state), equal local flops, no collective."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.sharding.context import Spec
+    from repro_torch.sharding.rules import (batch_spec, distribute,
+                                            param_specs)
+    from repro_torch.train import init_train_state
+
+    sc = ShapeConfig("train_128", LM_SEQ, LM_BATCH, "train")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        built, meta = dryrun.build_dryrun(
+            "llama3_2_1b", sc, fsdp=True, mesh=mesh,
+            overrides={"train_microbatches": 2})
+        fn, args, _, model, fake = built
+        t = time.perf_counter()
+        dry = dryrun.trace_step(fn, args, mesh, fake)
+        dry_s = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    state = init_train_state(model, torch.Generator(device=dev)
+                             .manual_seed(SEED), device=dev)
+    tokens = torch.randint(0, model.cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(SEED), device=dev,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    mesh = make_host_mesh(dev)
+    try:
+        ps = param_specs(state["params"], mesh, fsdp=True)
+        state = distribute(state, {"params": ps, "opt": {
+            "m": ps, "v": ps, "step": Spec()}, "step": Spec()}, mesh)
+        batch = distribute(batch, batch_spec(batch, mesh), mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t = time.perf_counter()
+        real = dryrun.trace_step(fn, (state, batch), mesh, None)
+        torch.cuda.synchronize()
+        real_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - before
+    finally:
+        dist.destroy_process_group()
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    pred = dry["memory"]["peak_bytes"]
+    res = {"config": "llama3_2_1b", "seq": LM_SEQ, "batch": LM_BATCH,
+           "microbatches": meta["train_microbatches"], "fsdp": True,
+           "predicted_peak_gb": pred / 1e9, "measured_peak_gb": peak / 1e9,
+           "peak_rel_err": (pred - peak) / peak,
+           "tracker_peak_real_step_gb": real["memory"]["peak_bytes"] / 1e9,
+           "flops_dry": dry["flops_per_device"],
+           "flops_real": real["flops_per_device"],
+           "collectives_dry": dry["collectives"],
+           "collectives_real": real["collectives"],
+           "dry_s": dry_s, "real_s": real_s, "tol": DRYRUN_PEAK_RTOL,
+           "launches": ops.launches()}
+    print(json.dumps({"dryrun_accounting": res}), flush=True)
+    if abs(pred - peak) > DRYRUN_PEAK_RTOL * peak:
+        raise AssertionError(f"dryrun: predicted peak {pred} vs measured "
+                             f"{peak}")
+    if dry["flops_per_device"] != real["flops_per_device"]:
+        raise AssertionError(f"dryrun: flops {dry['flops_per_device']} "
+                             f"vs the real step's "
+                             f"{real['flops_per_device']}")
+    if dry["collectives"]["total"] or real["collectives"]["total"]:
+        raise AssertionError(f"dryrun: a collective on one rank: dry "
+                             f"{dry['collectives']}, real "
+                             f"{real['collectives']}")
+    return res
+
+
+def serve_sharded(np, torch, dev, ops):
+    """Each of ``SERVE_SHARDED``: 8 prompts of ``SERVE_SHARDED_PROMPT``
+    tokens prefilled and ``SERVE_SHARDED_STEPS`` greedy tokens decoded,
+    plain and then with params and cache as DTensors on the 1 x 1 NCCL
+    host mesh: tokens bit-equal, and the config's decode kernel launched
+    n_layers x steps times in the sharded decode (counts reset just
+    before it): full-width bf16 ``llama3_2_1b`` through
+    ``decode_attention`` (B3), and ``rwkv6_7b`` at full width, cut in
+    depth, through ``wkv_step`` (B5). {config: result}."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    out = {}
+    mesh = make_host_mesh(dev)
+    try:
+        for arch, (layers, kernel) in SERVE_SHARDED.items():
+            out[arch] = _serve_sharded_one(torch, dev, ops, mesh, arch,
+                                           layers, kernel)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _serve_sharded_one(torch, dev, ops, mesh, arch, layers, kernel):
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.sharding import mesh_context
+    from repro_torch.sharding.rules import distribute, param_specs
+    from repro_torch.train import shard_batch
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED + 7),
+                        device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (8, SERVE_SHARDED_PROMPT),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(SEED + 8), device=dev,
+                           dtype=torch.int32)
+    cap = SERVE_SHARDED_PROMPT + SERVE_SHARDED_STEPS
+
+    def greedy(params, batch, sharded):
+        logits, cache = model.prefill(params, batch, capacity=cap)
+        toks = []
+        for i in range(SERVE_SHARDED_STEPS + 1):
+            full = logits.full_tensor() if sharded else logits
+            tok = torch.argmax(full, dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+            if i == SERVE_SHARDED_STEPS:
+                break
+            if i == 0:
+                ops.reset_launches()
+            logits, cache = model.decode(params, cache, {"token": tok})
+        torch.cuda.synchronize()
+        return torch.cat(toks, dim=1).cpu(), ops.launches()
+
+    t = time.perf_counter()
+    with torch.no_grad():
+        plain, plain_launches = greedy(params, {"tokens": prompt}, False)
+    plain_s = time.perf_counter() - t
+    sparams = distribute(params, param_specs(params, mesh), mesh)
+    t = time.perf_counter()
+    with torch.no_grad(), mesh_context(mesh), implicit_replication():
+        sharded, launches = greedy(
+            sparams, shard_batch({"tokens": prompt}, mesh), True)
+    sharded_s = time.perf_counter() - t
+    del params, sparams
+    want = cfg.n_layers * SERVE_SHARDED_STEPS
+    res = {"config": cfg.name, "layers": cfg.n_layers, "rows": 8,
+           "prompt": SERVE_SHARDED_PROMPT, "steps": SERVE_SHARDED_STEPS,
+           "mesh": {"data": 1, "model": 1},
+           "tokens_equal": bool(torch.equal(plain, sharded)),
+           "kernel": kernel, "kernel_launches": launches[kernel],
+           "want_launches": want, "plain_launches": plain_launches,
+           "launches": launches, "plain_s": plain_s, "sharded_s": sharded_s}
+    print(json.dumps({"serve_sharded": res}), flush=True)
+    if not res["tokens_equal"]:
+        raise AssertionError(f"serve_sharded {arch}: tokens differ: plain "
+                             f"{plain[:2].tolist()} sharded "
+                             f"{sharded[:2].tolist()}")
+    if launches[kernel] != want:
+        raise AssertionError(f"serve_sharded {arch}: {kernel} launched "
+                             f"{launches[kernel]}, want {want}")
+    return res
 
 
 def multi_card_case(np, torch, dev, shape):

@@ -51,10 +51,10 @@ SIGNATURES = {
     # z, centroids, mask, expert (or null), out, cls (or null), R, K, M,
     # h, eps, stream
     "cosine_fine_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # q, k, v, q_pos, kv_pos, out, B, H, KV, S, dh, window, scale,
-    # is_bf16, n_split, stream
-    "decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _I, _I, _P],
+    # q, k, v, q_pos, kv_pos, out, lse (or null), B, H, KV, S, dh, window,
+    # scale, is_bf16, n_split, stream
+    "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _F, _I, _I, _P],
     # q, k_pages, v_pages, table, q_pos, kv_pos, out, B, H, KV, n_lp, page,
     # page_stride, dh, window, scale, is_bf16, n_split, stream
     "paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -172,6 +172,26 @@ def check(rc: int, name: str) -> None:
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (shape, dtype and device, no
+    storage): the dry run's. A wrapper gives back its outputs' shapes for
+    one, launches nothing and counts nothing, and reports the launch's
+    work to ``on_fake_launch``."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
+#: called as ``on_fake_launch(name, flops)`` by a wrapper given fake
+#: tensors, where it would have launched ``name``; the dry run's counter
+#: sets it while it traces a step
+on_fake_launch = None
+
+
+def fake_launch(name: str, flops: float) -> None:
+    if on_fake_launch is not None:
+        on_fake_launch(name, flops)
 
 
 def check_aligned(fn: str, **tensors) -> None:

@@ -225,8 +225,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ q_pos_p,
                         const int* __restrict__ kv_pos, T* __restrict__ out,
-                        Addr addr, int S, int KV, int G, int window,
-                        float scale) {
+                        float* __restrict__ lse, Addr addr, int S, int KV,
+                        int G, int window, float scale) {
   constexpr int PER_LANE = DH / 32;
   constexpr int ROW = DH * (int)sizeof(T) + PAD;
   constexpr int TB = (int)tile_bytes(DH, (int)sizeof(T));
@@ -389,6 +389,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < PER_LANE; ++u)
       store_f(ob + warp * DH + lane * PER_LANE + u,
               acc[u] / fmaxf(l, 1e-30f));
+    if (lse != nullptr && lane == 0)
+      lse[(size_t)b * H + (size_t)h * G + warp] = m + logf(fmaxf(l, 1e-30f));
     return;
   }
 
@@ -426,6 +428,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     store_f(ob + e, A / fmaxf(L, 1e-30f));
+    if (lse != nullptr && e % DH == 0)
+      lse[(size_t)b * H + (size_t)h * G + g] = M + logf(fmaxf(L, 1e-30f));
   }
   cluster.sync();      // no block exits while another reads its partials
 }
@@ -433,8 +437,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DH, typename Addr>
 cudaError_t launch_dh(const void* q, const void* k, const void* v,
                       const void* q_pos, const void* kv_pos, void* out,
-                      const Addr& addr, int B, int KV, int G, int S,
-                      int window, float scale, int n_split,
+                      void* lse, const Addr& addr, int B, int KV, int G,
+                      int S, int window, float scale, int n_split,
                       cudaStream_t stream) {
   auto kern = decode_attention_kernel<T, DH, Addr>;
   const int nt = (S + TILE - 1) / TILE;
@@ -462,8 +466,8 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v,
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(q_pos),
-      static_cast<const int*>(kv_pos), static_cast<T*>(out), addr, S, KV, G,
-      window, scale);
+      static_cast<const int*>(kv_pos), static_cast<T*>(out),
+      static_cast<float*>(lse), addr, S, KV, G, window, scale);
   const cudaError_t last = cudaGetLastError();
   return e != cudaSuccess ? e : last;
 }
@@ -471,19 +475,19 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v,
 template <typename T, typename Addr>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* q_pos, const void* kv_pos, void* out,
-                   const Addr& addr, int B, int KV, int G, int S, int dh,
-                   int window, float scale, int n_split,
+                   void* lse, const Addr& addr, int B, int KV, int G, int S,
+                   int dh, int window, float scale, int n_split,
                    cudaStream_t stream) {
   switch (dh) {
     case 32:
-      return launch_dh<T, 32>(q, k, v, q_pos, kv_pos, out, addr, B, KV, G, S,
-                              window, scale, n_split, stream);
+      return launch_dh<T, 32>(q, k, v, q_pos, kv_pos, out, lse, addr, B, KV,
+                              G, S, window, scale, n_split, stream);
     case 64:
-      return launch_dh<T, 64>(q, k, v, q_pos, kv_pos, out, addr, B, KV, G, S,
-                              window, scale, n_split, stream);
+      return launch_dh<T, 64>(q, k, v, q_pos, kv_pos, out, lse, addr, B, KV,
+                              G, S, window, scale, n_split, stream);
     case 128:
-      return launch_dh<T, 128>(q, k, v, q_pos, kv_pos, out, addr, B, KV, G,
-                               S, window, scale, n_split, stream);
+      return launch_dh<T, 128>(q, k, v, q_pos, kv_pos, out, lse, addr, B, KV,
+                               G, S, window, scale, n_split, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -491,33 +495,36 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 template <typename Addr>
 int dispatch(const void* q, const void* k, const void* v, const void* q_pos,
-             const void* kv_pos, void* out, const Addr& addr, int B, int H,
-             int KV, int S, int dh, int window, float scale, int is_bf16,
-             int n_split, void* stream) {
+             const void* kv_pos, void* out, void* lse, const Addr& addr,
+             int B, int H, int KV, int S, int dh, int window, float scale,
+             int is_bf16, int n_split, void* stream) {
   if (KV <= 0 || H % KV != 0 || H / KV > MAX_G || B <= 0 || S <= 0 ||
       (n_split != 1 && n_split != 2 && n_split != 4 && n_split != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = H / KV;
   cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k, v, q_pos, kv_pos, out, addr, B,
-                                      KV, G, S, dh, window, scale, n_split,
-                                      st)
-              : launch<float>(q, k, v, q_pos, kv_pos, out, addr, B, KV, G, S,
-                              dh, window, scale, n_split, st);
+      is_bf16 ? launch<__nv_bfloat16>(q, k, v, q_pos, kv_pos, out, lse, addr,
+                                      B, KV, G, S, dh, window, scale,
+                                      n_split, st)
+              : launch<float>(q, k, v, q_pos, kv_pos, out, lse, addr, B, KV,
+                              G, S, dh, window, scale, n_split, st);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
+// The ring decode. With a non-null ``lse`` it also writes each (row,
+// head)'s log-sum-exp of its masked, scaled scores (f32, (B, H)): what
+// combines the outputs of several shards of one cache's slots.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* q_pos, const void* kv_pos,
-                                void* out, int B, int H, int KV, int S,
-                                int dh, int window, float scale, int is_bf16,
-                                int n_split, void* stream) {
+                                void* out, void* lse, int B, int H, int KV,
+                                int S, int dh, int window, float scale,
+                                int is_bf16, int n_split, void* stream) {
   const RingAddr addr{S, KV};
-  return dispatch(q, k, v, q_pos, kv_pos, out, addr, B, H, KV, S, dh, window,
-                  scale, is_bf16, n_split, stream);
+  return dispatch(q, k, v, q_pos, kv_pos, out, lse, addr, B, H, KV, S, dh,
+                  window, scale, is_bf16, n_split, stream);
 }
 
 extern "C" int paged_decode_attention(const void* q, const void* k_pages,
@@ -532,8 +539,9 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pages,
     return static_cast<int>(cudaErrorInvalidValue);
   const PagedAddr addr{static_cast<const int*>(table), n_lp, page, KV,
                        page_stride};
-  return dispatch(q, k_pages, v_pages, q_pos, kv_pos, out, addr, B, H, KV,
-                  n_lp * page, dh, window, scale, is_bf16, n_split, stream);
+  return dispatch(q, k_pages, v_pages, q_pos, kv_pos, out, nullptr, addr, B,
+                  H, KV, n_lp * page, dh, window, scale, is_bf16, n_split,
+                  stream);
 }
 
 // Dynamic shared memory one block of either kernel asks for (n_lp = 0

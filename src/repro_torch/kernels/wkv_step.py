@@ -37,8 +37,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from .build import check, check_aligned, library
+from ..sharding.context import _clean_spec, local_apply, placements
+from .build import check, check_aligned, fake_launch, is_fake, library
 
 SUPPORTED_P = (16, 32, 64)
 
@@ -88,6 +90,8 @@ def wkv_step(r, k, v, logw, u, state, out_state: torch.Tensor
     ``out_state``). ``out_state`` receives the new state; it is ``state``
     itself (in place, as the decode runs it) or a tensor that does not
     overlap it."""
+    if isinstance(state, DTensor):
+        return _sharded(r, k, v, logw, u, state, out_state)
     _check(r, k, v, logw, u, state, out_state)
     if r.device.type == "cpu":
         return wkv_step_plain(r, k, v, logw, u, state, out_state)
@@ -102,6 +106,12 @@ def wkv_step(r, k, v, logw, u, state, out_state: torch.Tensor
         if not t.is_contiguous() or t.device != r.device:
             raise ValueError(f"wkv_step: {name} must be contiguous on "
                              f"{r.device}")
+    if is_fake(r):
+        # the dry run's fake tensors: the launch's output, its work
+        # reported, nothing launched or counted
+        fake_launch("wkv_step", 5.0 * B * H * P * P)
+        return torch.empty((B, H, P), dtype=torch.float32,
+                           device=r.device), out_state
     check_aligned("wkv_step", state=state, out_state=out_state)
     a, b = state.data_ptr(), out_state.data_ptr()
     n = state.numel() * state.element_size()
@@ -122,3 +132,30 @@ def wkv_step(r, k, v, logw, u, state, out_state: torch.Tensor
 
 
 wkv_step.launches = 0
+
+
+def _sharded(r, k, v, logw, u, state, out_state):
+    """``wkv_step`` of a sharded decode: each rank steps its own rows, and
+    its own heads where ``model`` divides them, writing its shard of
+    ``out_state``. A state laid out otherwise (``cache_specs`` splits the
+    largest of a reduced model's (H, P, P) dims) is stepped in that
+    layout and copied back."""
+    row, head = ("pod", "data"), "model"
+    spec3, spec4 = (row, head, None), (row, head, None, None)
+    mesh = state.device_mesh
+    want = placements(_clean_spec(mesh, spec4, state.shape), mesh)
+
+    def lay(x):
+        return x if tuple(x.placements) == want else x.redistribute(mesh,
+                                                                    want)
+
+    src = lay(state)
+    dst = src if out_state is state else lay(out_state)
+    o = local_apply(
+        lambda r, k, v, logw, u, s, out: wkv_step(r, k, v, logw, u, s,
+                                                  out)[0],
+        (spec3, spec3, spec3, spec3, (head, None), None, None),
+        r, k, v, logw, u, src, dst)
+    if dst is not out_state:
+        out_state.copy_(dst)
+    return o, out_state

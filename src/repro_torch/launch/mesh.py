@@ -30,6 +30,28 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from ..device import DeviceLike, resolve_device
 
 
+#: Per-card constants of the roofline (``launch/dryrun.py``): NVIDIA H100
+#: 80GB HBM3 (SXM), 700 W power limit.
+HW = {
+    # dense bf16 tensor-core peak, FLOP/s (H100 SXM datasheet; the bound
+    # PERF.md's kernel table uses); NVIDIA H100 80GB HBM3, 700 W
+    "peak_flops_bf16": 989e12,
+    # HBM3 bandwidth, B/s (H100 SXM datasheet); NVIDIA H100 80GB HBM3, 700 W
+    "hbm_bw": 3.35e12,
+    # one card's inter-node link, B/s: the production `model` axis of 16
+    # spans two 8-card NVLink nodes, so its collectives cross the slower
+    # link: a 400 Gb/s ConnectX-7 NDR InfiniBand port a card (DGX H100
+    # datasheet: eight such ports a node of eight cards) = 50 GB/s a
+    # direction; NVIDIA H100 80GB HBM3, 700 W
+    "link_bw": 50e9,
+    # device memory, bytes: torch.cuda.get_device_properties(0)
+    # .total_memory of an NVIDIA H100 80GB HBM3, 700 W, torch
+    # 2.11.0+cu128 (read on the card; chip_smoke.py's dryrun phase
+    # prints it beside this figure)
+    "hbm_bytes": 85_017_493_504,
+}
+
+
 def _as_device(d) -> torch.device:
     """A device, a device string, or a CUDA ordinal (as ``torch.device``
     reads an int)."""

@@ -15,11 +15,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..sharding.context import local_apply, mesh_shape
+from ..sharding.context import (as_dtensor, local_apply, local_value,
+                                mesh_shape, replicate_dim, shard_dims,
+                                shard_index)
 
 NEG_INF = -1e30
+BATCH = ("pod", "data")
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -69,15 +72,8 @@ def attention(q, k, v, *, q_pos, kv_pos, window: int = 0, chunk: int = 0,
     blockwise online-softmax path when it tiles Sk.
     """
     if isinstance(q, DTensor):
-        # a sharded step: each rank attends over its own rows, and over
-        # its own heads where the model axis divides the KV heads (then
-        # query head h stays with KV head h // G on one rank)
-        model = mesh_shape(q.device_mesh).get("model", 1)
-        heads = "model" if k.shape[2] % model == 0 else None
-        spec = (("pod", "data"), None, heads, None)
-        return local_apply(lambda q, k, v: attention(
-            q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window,
-            chunk=chunk, causal=causal), (spec, spec, spec), q, k, v)
+        return _sharded_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                                  window=window, chunk=chunk, causal=causal)
     Sq, Sk = q.shape[1], k.shape[1]
     scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))
     if chunk and Sq > 1 and Sk > chunk and Sk % chunk == 0:
@@ -93,6 +89,89 @@ def attention(q, k, v, *, q_pos, kv_pos, window: int = 0, chunk: int = 0,
     p = torch.softmax(s, dim=-1)
     o = _gqa_av(p, v)
     return o.to(q.dtype)
+
+
+def heads_whole(x, n_heads: int):
+    """``x`` (..., n_heads * dh), a DTensor whose last dim some mesh dims
+    split, with that dim gathered where the split would cut a head: the
+    projection before a (.., n_heads, dh) reshape (GQA's K and V when
+    ``model`` does not divide the KV heads). Anything else as it is."""
+    dims = shard_dims(x, -1)
+    if not dims or n_heads % int(np.prod([x.device_mesh.size(i)
+                                          for i in dims])) == 0:
+        return x
+    return replicate_dim(x, x.ndim - 1)
+
+
+def _sharded_attention(q, k, v, *, q_pos, kv_pos, window, chunk, causal):
+    """A sharded step's attention, on each rank's own rows. Query heads
+    stay split over ``model`` where it divides them; K and V are split
+    there too where it divides the KV heads, and are whole otherwise,
+    each rank then attending with its query heads h against the KV heads
+    h // G they map to (no rank computes another's heads)."""
+    mesh = q.device_mesh
+    model = mesh_shape(mesh).get("model", 1)
+    H, KV = q.shape[2], k.shape[2]
+    q_pos, kv_pos = local_value(q_pos), local_value(kv_pos)
+    qspec = (BATCH, None, "model", None)
+    kvspec = (BATCH, None, "model" if KV % model == 0 else None, None)
+
+    def attend(q, k, v):
+        return attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window,
+                         chunk=chunk, causal=causal)
+
+    if H % model and q.shape[1] > 1 and q.shape[1] % model == 0 and \
+            q_pos.dim() == 1:
+        # the query heads do not split: the queries do (each rank its
+        # slice of the sequence against every key), so that no rank
+        # computes another's share
+        n = q.shape[1] // model
+        c = shard_index(mesh, [mesh.mesh_dim_names.index("model")])
+        whole = (BATCH, None, None, None)
+        return local_apply(lambda q, k, v: attention(
+            q, k, v, q_pos=q_pos[c * n:(c + 1) * n], kv_pos=kv_pos,
+            window=window, chunk=chunk, causal=causal),
+            ((BATCH, "model", None, None), whole, whole), q, k, v)
+    if H % model or KV % model == 0:
+        return local_apply(attend, (qspec, kvspec, kvspec), q, k, v)
+    # query heads split, KV heads whole: rank c holds query heads
+    # c * Hl .. c * Hl + Hl - 1, which read KV heads h // G
+    Hl, G = H // model, H // KV
+    c = shard_index(mesh, [mesh.mesh_dim_names.index("model")])
+    kv_of = [(c * Hl + j) // G for j in range(Hl)]
+    lo, n = kv_of[0], kv_of[-1] - kv_of[0] + 1
+    if Hl % n == 0 and all(kv_of[j] - lo == j // (Hl // n)
+                           for j in range(Hl)):
+        def local(q, k, v):     # a contiguous run of KV heads, G' each
+            return attend(q, k[:, :, lo:lo + n], v[:, :, lo:lo + n])
+    else:
+        idx = torch.tensor(kv_of, device=k.device)
+
+        def local(q, k, v):     # one KV head a query head
+            return attend(q, k.index_select(2, idx), v.index_select(2, idx))
+    return local_apply(local, (qspec, kvspec, kvspec), q, k, v)
+
+
+def merge_heads(o):
+    """o (B, S, H, dh) -> (B, S, H * dh). A DTensor is merged on each rank
+    (its split rows and heads stay split; a split sequence moves to the
+    merged columns), so the gradient comes back in o's layout: a merge
+    DTensor plans itself would hand a gradient split over ``model`` back
+    to heads ``model`` does not divide."""
+    def merge(o):
+        return o.reshape(o.shape[0], o.shape[1], -1)
+
+    out = local_apply(merge, (None,), o)
+    seq = shard_dims(out, 1)
+    if seq:
+        # queries split by sequence (heads `model` does not divide): the
+        # output projection wants its input split by columns instead
+        mesh = out.device_mesh
+        cols = out.shape[2] % int(np.prod([mesh.size(i) for i in seq])) == 0
+        out = out.redistribute(mesh, tuple(
+            (Shard(2) if cols else Replicate()) if i in seq else p
+            for i, p in enumerate(out.placements)))
+    return out
 
 
 def _flash(q, k, v, *, q_pos, kv_pos, window, chunk, scale, causal=True):
@@ -142,7 +221,10 @@ def cache_prefill(cache, k, v):
     in place. k, v: (..., S, KV, dh) against cache buffers (..., C, KV,
     dh) — one layer, or a leading layer axis for all layers at once. If
     the cache is a ring (capacity < S), keep the last ``capacity`` tokens
-    at slot = absolute_pos % capacity."""
+    at slot = absolute_pos % capacity. A DTensor cache (laid out by
+    ``cache_specs``) is written rank-locally (``_prefill_sharded``)."""
+    if isinstance(cache["k"], DTensor):
+        return _prefill_sharded(cache, k, v)
     S = k.shape[-3]
     C = cache["k"].shape[-3]
     dev = cache["k"].device
@@ -163,6 +245,86 @@ def cache_prefill(cache, k, v):
     cache["pos"] = pos
     cache["t"] = torch.full((), S, dtype=torch.int32, device=dev)
     return cache
+
+
+def _ring_positions(slots, S: int, C: int):
+    """(absolute position, live) of ring ``slots`` after a prefill of S
+    tokens into a capacity-C cache: slot j holds position j (live where j
+    < S), or with S > C the one of the last C positions p with p % C ==
+    j."""
+    if S <= C:
+        return slots.clamp(max=S - 1), slots < S
+    return S - C + (slots - (S - C)) % C, torch.ones_like(slots,
+                                                           dtype=torch.bool)
+
+
+def _prefill_sharded(cache, k, v):
+    """``cache_prefill`` into a DTensor cache, on each rank's own shard:
+    k and v are laid out as the cache with the sequence whole (they come
+    from the prefill split by rows, and by heads where the cache splits
+    them), and each rank writes the positions its slots hold. No gather
+    of the cache; ``pos`` and ``t`` become replicated DTensors."""
+    ck = cache["k"]
+    mesh = ck.device_mesh
+    seq = ck.ndim - 3
+    S, C = k.shape[-3], ck.shape[-3]
+    dims = shard_dims(ck, seq)
+    Cl = C // int(np.prod([mesh.size(i) for i in dims]))
+    c0 = shard_index(mesh, dims) * Cl
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim == seq else p
+                 for p in ck.placements)
+    k, v = (as_dtensor(x, mesh).redistribute(mesh, want) for x in (k, v))
+
+    def write(ck, cv, k, v):
+        slots = c0 + torch.arange(Cl, device=ck.device)
+        at, live = _ring_positions(slots, S, C)
+        live = live.view((Cl,) + (1,) * (ck.ndim - seq - 1))
+        for dst, src in ((ck, k), (cv, v)):
+            dst.copy_(torch.where(live, src.index_select(seq, at).to(
+                dst.dtype), dst))
+        return ck, cv
+
+    local_apply(write, (None, None, None, None), ck, cache["v"], k, v,
+                n_out=2)
+    dev = ck.to_local().device
+    at, live = _ring_positions(torch.arange(C, dtype=torch.int32,
+                                            device=dev), S, C)
+    cache["pos"] = as_dtensor(torch.where(live, at, torch.full_like(at, -1)),
+                              mesh)
+    cache["t"] = as_dtensor(torch.full((), S, dtype=torch.int32,
+                                       device=dev), mesh)
+    return cache
+
+
+def ring_write(ck, cv, k1, v1, slot):
+    """Write one token a row, k1, v1 (B, 1, KV, dh), at ring slot ``slot``
+    (1,) of one layer's ck, cv (B, C, KV, dh), in place. A DTensor cache
+    is written rank-locally: where its slots are split, only the rank
+    holding ``slot`` changes it, and no rank reads ``slot`` on the
+    host."""
+    if not isinstance(ck, DTensor):
+        ck.index_copy_(1, slot, k1.to(ck.dtype))
+        cv.index_copy_(1, slot, v1.to(cv.dtype))
+        return
+    mesh = ck.device_mesh
+    dims = shard_dims(ck, 1)
+    Cl = ck.shape[1] // int(np.prod([mesh.size(i) for i in dims]))
+    c0 = shard_index(mesh, dims) * Cl
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+                 for p in ck.placements)
+    k1, v1 = (as_dtensor(x, mesh).redistribute(mesh, want) for x in (k1, v1))
+    slot = local_value(slot)
+
+    def write(ck, cv, k1, v1):
+        at = slot - c0
+        inside = ((at >= 0) & (at < Cl)).view(1, 1, 1, 1)
+        at = at.clamp(0, Cl - 1)
+        for dst, src in ((ck, k1), (cv, v1)):
+            dst.index_copy_(1, at, torch.where(
+                inside, src.to(dst.dtype), dst.index_select(1, at)))
+        return ck, cv
+
+    local_apply(write, (None, None, None, None), ck, cv, k1, v1, n_out=2)
 
 
 def cache_append(cache, k1, v1):

@@ -9,13 +9,18 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from typing import Dict, Iterator, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..device import resolve_device
-from ..sharding.context import replicate_dim
+from ..sharding.context import (_clean_spec, all_reduce, as_dtensor,
+                                local_apply, placements, replicate_dim,
+                                shard_dims, shard_index, unshard_batch_axes)
+
+BATCH = ("pod", "data")
 
 DTYPES = {
     "float32": torch.float32,
@@ -140,6 +145,24 @@ class ArchConfig:
         return self.replace(**small)
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape (training / prefill / decode)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
@@ -187,19 +210,21 @@ def embed_init(gen: torch.Generator, shape: Sequence[int], dtype
     return (_randn(gen, shape) * 0.02).to(dtype)
 
 
-def stack_views(stack: Dict) -> List[Dict]:
+def stack_views(stack: Dict) -> Iterator[Dict]:
     """Per-layer views of an L-stacked layer tree with an ``ln1`` leaf
-    (nested dicts, as ``mlp``, ``moe`` or ``attn``, keep their nesting)."""
+    (nested dicts, as ``mlp``, ``moe`` or ``attn``, keep their nesting),
+    one at a time; under FSDP specs each layer's weights are gathered
+    over the batch axes as its turn comes (``unshard_batch_axes``)."""
     def unbind(node):
         return {k: unbind(v) if isinstance(v, dict) else v.unbind(0)
                 for k, v in node.items()}
 
     def pick(node, i):
-        return {k: pick(v, i) if isinstance(v, dict) else v[i]
-                for k, v in node.items()}
+        return {k: pick(v, i) if isinstance(v, dict)
+                else unshard_batch_axes(v[i]) for k, v in node.items()}
 
     per = unbind(stack)
-    return [pick(per, i) for i in range(len(per["ln1"]))]
+    return (pick(per, i) for i in range(len(per["ln1"])))
 
 
 # ---------------------------------------------------------------------------
@@ -258,17 +283,66 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # ---------------------------------------------------------------------------
 
 
+def embed_lookup(table, tokens) -> torch.Tensor:
+    """``table[tokens]`` (tokens (...) int, table (V, D)). A DTensor table
+    split over the vocab (``embed``'s spec, over ``model``) is read
+    rank-locally: each rank looks up the tokens its rows hold, 0 for the
+    others, and the pieces are summed over the vocab's ranks (one
+    all-reduce; its gradient needs none): the masked local gather the
+    reference's sharded lookup lowers to. DTensor's own plan moves the
+    whole table between shard dims (an all-to-all, or on the CPU an
+    all-gather, of every row)."""
+    if not isinstance(table, DTensor) or not shard_dims(table, 0):
+        return table[tokens.long()]
+    mesh = table.device_mesh
+    vdims = shard_dims(table, 0)
+    table = table.redistribute(mesh, tuple(
+        Shard(0) if i in vdims else Replicate() for i in range(mesh.ndim)))
+    tspec = (BATCH,) + (None,) * (tokens.ndim - 1)
+    n = table.shape[0] // int(np.prod([mesh.size(i) for i in vdims]))
+    lo = shard_index(mesh, vdims) * n
+    groups = [mesh.get_group(i) for i in vdims]
+
+    def local(w, t):
+        t = t.long() - lo
+        inside = ((t >= 0) & (t < n))[..., None]
+        return _SumForward.apply(w[t.clamp(0, n - 1)] * inside.to(w.dtype),
+                                 groups)
+
+    return local_apply(local, (None, tspec), table,
+                       as_dtensor(tokens, mesh), out_specs=(tspec + (None,),))
+
+
+class _SumForward(torch.autograd.Function):
+    """All-reduce (sum) over each of ``groups`` forward, the identity
+    backward: Megatron's ``g``, for a value every rank of the groups then
+    uses whole (its gradient is already every rank's)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        for g in groups:
+            x = all_reduce(x, "sum", g)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None
                  ) -> torch.Tensor:
     """Mean cross-entropy; logits (..., V) any dtype (the padded vocab: the
     logsumexp runs over every column, as the reference's does), reduction
-    in f32. ``mask`` (labels' shape) weights each position."""
-    # DTensor's vocab-parallel gather (_MaskPartial) fails on logits
-    # sharded over the vocab: gather the gold logit from replicated ones
-    logits = replicate_dim(logits.float(), logits.ndim - 1)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    in f32. ``mask`` (labels' shape) weights each position. DTensor logits
+    stay split over the vocab (``_vocab_parallel_nll``), as the
+    reference's equality-mask contraction keeps them."""
+    if isinstance(logits, DTensor):
+        nll = _vocab_parallel_nll(logits, labels)
+    else:
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        nll = lse - gold
     if mask is not None:
         mask = mask.float()
         out = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
@@ -277,3 +351,65 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None
     # DTensor's backward of a Partial(avg) mean added to a replicated
     # term (the balance loss) views a strided gradient: reduce it here
     return replicate_dim(out)
+
+
+def _vocab_parallel_nll(logits, labels):
+    """Each position's ``logsumexp - gold logit`` of DTensor logits
+    (rows over ``pod`` x ``data``, the vocab over ``model``), computed
+    rank-locally: the local max all-reduced with max over ``model``, then
+    the sum of exps and the gold logit (the one shard holding the label
+    gives it, the others 0) all-reduced with sum: partial sums and one
+    reduction, the reference's pattern. Neither the logits nor their
+    gradient is gathered; the result is split by rows."""
+    mesh = logits.device_mesh
+    lspec = (BATCH,) + (None,) * (logits.ndim - 2) + ("model",)
+    yspec = (BATCH,) + (None,) * (labels.ndim - 1)
+    pl = placements(_clean_spec(mesh, lspec, logits.shape), mesh)
+    vdims = [i for i, p in enumerate(pl)
+             if isinstance(p, Shard) and p.dim == logits.ndim - 1]
+    group = mesh.get_group(vdims[0]) if vdims else None
+    lo = shard_index(mesh, vdims) * (logits.shape[-1] // int(np.prod(
+        [mesh.size(i) for i in vdims])))
+    return local_apply(lambda x, y: _VocabNLL.apply(x, y, lo, group),
+                       (lspec, yspec), logits, as_dtensor(labels, mesh),
+                       out_specs=(yspec,))
+
+
+class _VocabNLL(torch.autograd.Function):
+    """One rank's vocab shard x (..., Vl) of logits, labels (...) over the
+    whole vocab, the shard's first column ``lo`` and the group of ranks
+    that split the vocab (None: x is the whole vocab) -> nll (...) f32,
+    equal on every rank of the group. Its gradient needs no collective:
+    softmax - onehot on each shard, from the saved global logsumexp."""
+
+    @staticmethod
+    def forward(ctx, x, labels, lo, group):
+        x32 = x.float()
+        local = labels.long() - lo
+        inside = (local >= 0) & (local < x.shape[-1])
+        idx = local.clamp(0, x.shape[-1] - 1)[..., None]
+        m = x32.amax(dim=-1)
+        if group is not None:
+            m = all_reduce(m, "max", group)
+        sums = torch.stack([
+            torch.exp(x32 - m[..., None]).sum(dim=-1),
+            torch.where(inside, x32.gather(-1, idx)[..., 0],
+                        torch.zeros_like(m))])
+        if group is not None:
+            sums = all_reduce(sums, "sum", group)
+        lse = m + torch.log(sums[0])
+        ctx.save_for_backward(x, lse, idx, inside)
+        return lse - sums[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse, idx, inside = ctx.saved_tensors
+        p = torch.exp(x.float() - lse[..., None])
+        p = p.scatter_add(-1, idx, -inside.float()[..., None])
+        return (p * g[..., None]).to(x.dtype), None, None, None
+
+
+def tree_size(tree) -> int:
+    """Elements over every leaf of ``tree`` (tensors or meta tensors)."""
+    from ..tree import leaves
+    return sum(int(np.prod(tuple(x.shape))) for x in leaves(tree))

@@ -52,12 +52,16 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.decode_attention import decode_attention
 from ..kernels.paged_decode_attention import paged_decode_attention
 from ..sharding import shard_act
+from ..sharding.context import (reduce_grad, reduce_sums,
+                                unshard_batch_axes)
 from .api import BaseModel, register_family
-from .attention import (attention, cache_prefill, init_kv_cache,
-                        last_writer, paged_append, paged_append_rows,
-                        paged_gather, paged_scatter_pages, suffix_attend)
-from .common import (ArchConfig, apply_rope, dense_init, dt, embed_init,
-                     init_device, rmsnorm, softmax_xent, stack_views)
+from .attention import (attention, cache_prefill, heads_whole,
+                        init_kv_cache, last_writer, merge_heads, paged_append,
+                        paged_append_rows, paged_gather, paged_scatter_pages,
+                        ring_write, suffix_attend)
+from .common import (ArchConfig, ShapeConfig, apply_rope, dense_init, dt,
+                     embed_init, embed_lookup, init_device, rmsnorm,
+                     softmax_xent, stack_views)
 from .moe import init_moe, moe_ffn
 
 BATCH = ("pod", "data")
@@ -101,6 +105,9 @@ def _qkv(h, lp, cfg: ArchConfig, positions):
         q = q + lp["bq"]
         k = k + lp["bk"]
         v = v + lp["bv"]
+    # under a mesh, whole heads before the reshape: K and V are gathered
+    # over `model` where it does not divide the KV heads (Q stays split)
+    q, k, v = heads_whole(q, H), heads_whole(k, KV), heads_whole(v, KV)
     q = apply_rope(q.reshape(B, S, H, dh), positions, cfg.rope_theta)
     k = apply_rope(k.reshape(B, S, KV, dh), positions, cfg.rope_theta)
     q = shard_act(q, (BATCH, None, "model", None))
@@ -122,14 +129,17 @@ def _ffn(h, lp, cfg: ArchConfig, dropless: bool, with_aux: bool = True):
 
 def _layer_full(x, lp, cfg: ArchConfig, positions):
     """Full-sequence layer (train / prefill). Returns (x, (k, v), aux);
-    aux is None for a dense layer."""
-    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    aux is None for a dense layer. Each projection's input reduces its
+    gradient over the split heads or columns (``reduce_grad``)."""
+    h = reduce_grad(rmsnorm(x, lp["ln1"], cfg.norm_eps))
     q, k, v = _qkv(h, lp, cfg, positions)
     o = attention(q, k, v, q_pos=positions, kv_pos=positions,
                   window=cfg.sliding_window, chunk=cfg.attn_chunk)
     B, S = x.shape[:2]
-    x = x + (o.reshape(B, S, -1) @ lp["wo"]).to(x.dtype)
-    h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    # the output projection's sums reduced before the residual: DTensor
+    # would otherwise reduce-scatter them over the sequence
+    x = x + reduce_sums(merge_heads(o) @ lp["wo"]).to(x.dtype)
+    h2 = reduce_grad(rmsnorm(x, lp["ln2"], cfg.norm_eps))
     y, aux = _ffn(h2, lp, cfg, dropless=False)
     # sequence parallelism: between TP blocks the residual stream is
     # sharded along seq over `model` (Korthikanti et al.)
@@ -147,7 +157,7 @@ def _layer_suffix(x, lp, cfg: ArchConfig, positions, pk, pv, offset):
     o = suffix_attend(q, k, v, pk, pv, offset=offset,
                       window=cfg.sliding_window, chunk=cfg.attn_chunk)
     B, S = x.shape[:2]
-    x = x + (o.reshape(B, S, -1) @ lp["wo"]).to(x.dtype)
+    x = x + (merge_heads(o) @ lp["wo"]).to(x.dtype)
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     y, _ = _ffn(h2, lp, cfg, dropless=False, with_aux=False)
     x = shard_act(x + y.to(x.dtype),
@@ -164,10 +174,12 @@ def _layer_decode(x, lp, t, cfg: ArchConfig, write_attend):
     q, k1, v1 = _qkv(h, lp, cfg, t.reshape(1))
     o = write_attend(q[:, 0], k1, v1)
     B = x.shape[0]
-    x = x + (o.reshape(B, 1, -1) @ lp["wo"]).to(x.dtype)
+    # the projections' sums reduced before the residual: a pending sum
+    # met at the next projection makes DTensor gather its weights
+    x = x + reduce_sums(o.reshape(B, 1, -1) @ lp["wo"]).to(x.dtype)
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     y, _ = _ffn(h2, lp, cfg, dropless=True, with_aux=False)
-    return x + y.to(x.dtype)
+    return x + reduce_sums(y).to(x.dtype)
 
 
 def _layer_verify(x, lp, cfg: ArchConfig, q_pos, write):
@@ -183,7 +195,7 @@ def _layer_verify(x, lp, cfg: ArchConfig, q_pos, write):
     o = attention(q, ck, cv, q_pos=q_pos, kv_pos=kv_pos,
                   window=cfg.sliding_window, chunk=0)
     B, S = x.shape[:2]
-    x = x + (o.reshape(B, S, -1) @ lp["wo"]).to(x.dtype)
+    x = x + (merge_heads(o) @ lp["wo"]).to(x.dtype)
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     y, _ = _ffn(h2, lp, cfg, dropless=True, with_aux=False)
     return x + y.to(x.dtype)
@@ -220,7 +232,8 @@ class DecoderLM(BaseModel):
         (B, n_stub_embeds, D) prepended where the config has stubs and
         the batch carries them (a VLM prefill; decode feeds tokens only)."""
         cfg = self.cfg
-        x = params["embed"][batch["tokens"].long()].to(dt(cfg.compute_dtype))
+        x = embed_lookup(params["embed"], batch["tokens"]).to(
+            dt(cfg.compute_dtype))
         if cfg.n_stub_embeds and "stub_embeds" in batch:
             x = torch.cat([batch["stub_embeds"].to(x.dtype), x], dim=1)
         return shard_act(x, (BATCH, "model" if cfg.seq_parallel else None,
@@ -229,7 +242,7 @@ class DecoderLM(BaseModel):
     def _unembed(self, params, x):
         w = (params["embed"].T if self.cfg.tie_embeddings
              else params["unembed"])
-        return x @ w.to(x.dtype)
+        return x @ unshard_batch_axes(w).to(x.dtype)
 
     # ------------------------------------------------------------------
     def loss(self, params, batch):
@@ -259,7 +272,7 @@ class DecoderLM(BaseModel):
                     if cfg.remat else layer(x, lp))
             if a is not None:
                 aux = aux + a
-        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        x = reduce_grad(rmsnorm(x, params["ln_f"], cfg.norm_eps))
         if cfg.n_stub_embeds:
             x = x[:, cfg.n_stub_embeds:]
         ce = softmax_xent(self._unembed(params, x), batch["labels"])
@@ -301,7 +314,7 @@ class DecoderLM(BaseModel):
         logits, kvs = self._prefill_layers(params, batch)
         B, S = kvs[0][0].shape[:2]
         C = capacity or self.cache_capacity(S)
-        cache = self.init_cache(B, C, device=logits.device)
+        cache = self.new_cache(B, C, like=logits)
         cache_prefill(cache, torch.stack([k for k, _ in kvs]),
                       torch.stack([v for _, v in kvs]))
         return logits, cache
@@ -319,8 +332,7 @@ class DecoderLM(BaseModel):
             ck, cv = cache["k"][i], cache["v"][i]
 
             def write_attend(q, k1, v1, ck=ck, cv=cv):
-                ck.index_copy_(1, slot, k1.to(ck.dtype))
-                cv.index_copy_(1, slot, v1.to(cv.dtype))
+                ring_write(ck, cv, k1, v1, slot)
                 return decode_attention(q, ck, cv, t, kv_pos,
                                         window=cfg.sliding_window)
 
@@ -331,6 +343,28 @@ class DecoderLM(BaseModel):
         cache["pos"].copy_(kv_pos)
         t.add_(1)
         return logits, cache
+
+    def input_shapes(self, sc: ShapeConfig):
+        """Token inputs on the ``meta`` device; a VLM's ``stub_embeds`` (B,
+        n_stub_embeds, D) take the first positions of the sequence, and
+        the tokens the rest."""
+        cfg = self.cfg
+        if not cfg.n_stub_embeds:
+            return super().input_shapes(sc)
+        B, S = sc.global_batch, sc.seq_len
+        n_txt = S - cfg.n_stub_embeds
+
+        def f(*shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        stub = f(B, cfg.n_stub_embeds, cfg.d_model,
+                 dtype=dt(cfg.compute_dtype))
+        if sc.mode == "train":
+            return {"tokens": f(B, n_txt), "labels": f(B, n_txt),
+                    "stub_embeds": stub}
+        if sc.mode == "prefill":
+            return {"tokens": f(B, n_txt), "stub_embeds": stub}
+        return {"token": f(B, 1)}
 
     # ------------------------------------------------------------------
     # Speculative verify. Exactness: all K+1 keys/values land in the

@@ -33,10 +33,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..sharding import shard_act
+from ..sharding.context import (reduce_grad, reduce_sums,
+                                unshard_batch_axes)
 from .api import BaseModel, register_family
-from .attention import attention, cache_prefill
+from .attention import (attention, cache_prefill, heads_whole, merge_heads,
+                        ring_write)
 from .common import (ArchConfig, apply_rope, dense_init, dt, embed_init,
-                     init_device, rmsnorm, softmax_xent, stack_views)
+                     embed_lookup, init_device, rmsnorm, softmax_xent,
+                     stack_views)
 from .dense import _ffn
 
 BATCH = ("pod", "data")
@@ -81,9 +85,9 @@ def _mha(ap, xq, xkv, cfg: ArchConfig, *, q_pos, kv_pos, causal,
     B, Sq, _ = xq.shape
     Sk = xkv.shape[1]
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    q = (xq @ ap["wq"]).reshape(B, Sq, H, dh)
-    k = (xkv @ ap["wk"]).reshape(B, Sk, KV, dh)
-    v = (xkv @ ap["wv"]).reshape(B, Sk, KV, dh)
+    q = heads_whole(xq @ ap["wq"], H).reshape(B, Sq, H, dh)
+    k = heads_whole(xkv @ ap["wk"], KV).reshape(B, Sk, KV, dh)
+    v = heads_whole(xkv @ ap["wv"], KV).reshape(B, Sk, KV, dh)
     if rope_q:
         q = apply_rope(q, q_pos, cfg.rope_theta)
     if rope_k:
@@ -91,17 +95,21 @@ def _mha(ap, xq, xkv, cfg: ArchConfig, *, q_pos, kv_pos, causal,
     q = shard_act(q, (BATCH, None, "model", None))
     o = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal,
                   chunk=chunk)
-    return (o.reshape(B, Sq, H * dh) @ ap["wo"]).to(xq.dtype), k, v
+    return reduce_sums(merge_heads(o) @ ap["wo"]).to(xq.dtype), k, v
 
 
 def _mlp(x, lp, cfg: ArchConfig):
-    h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    """The FFN block. Under a mesh the projections' inputs reduce their
+    gradients (``reduce_grad``) and the output projection's sums are
+    reduced before the residual (``reduce_sums``), as in the decoder-only
+    layer."""
+    h2 = reduce_grad(rmsnorm(x, lp["ln2"], cfg.norm_eps))
     y, _ = _ffn(h2, lp, cfg, dropless=True, with_aux=False)
-    return x + y.to(x.dtype)
+    return x + reduce_sums(y).to(x.dtype)
 
 
 def _enc_layer(x, lp, cfg: ArchConfig, positions):
-    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    h = reduce_grad(rmsnorm(x, lp["ln1"], cfg.norm_eps))
     o, _, _ = _mha(lp["attn"], h, h, cfg, q_pos=positions, kv_pos=positions,
                    causal=False, chunk=cfg.attn_chunk)
     return _mlp(x + o, lp, cfg)
@@ -110,11 +118,11 @@ def _enc_layer(x, lp, cfg: ArchConfig, positions):
 def _dec_layer_full(x, enc_out, lp, cfg: ArchConfig, positions,
                     enc_positions):
     """Full-sequence decoder layer: (x, (k, v, xk, xv))."""
-    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    h = reduce_grad(rmsnorm(x, lp["ln1"], cfg.norm_eps))
     o, k, v = _mha(lp["attn"], h, h, cfg, q_pos=positions, kv_pos=positions,
                    causal=True, chunk=cfg.attn_chunk)
     x = x + o
-    hx = rmsnorm(x, lp["ln_x"], cfg.norm_eps)
+    hx = reduce_grad(rmsnorm(x, lp["ln_x"], cfg.norm_eps))
     ox, xk, xv = _mha(lp["xattn"], hx, enc_out, cfg, q_pos=positions,
                       kv_pos=enc_positions, causal=False, rope_q=False,
                       rope_k=False, chunk=cfg.attn_chunk)
@@ -165,14 +173,14 @@ class EncDecLM(BaseModel):
             x = (checkpoint(_enc_layer, x, lp, cfg, positions,
                             use_reentrant=False) if remat
                  else _enc_layer(x, lp, cfg, positions))
-        return rmsnorm(x, params["ln_enc"], cfg.norm_eps)
+        return reduce_grad(rmsnorm(x, params["ln_enc"], cfg.norm_eps))
 
     def _decode_full(self, params, enc_out, tokens, remat: bool = False):
         """Every decoder layer over the full sequence: (x after ``ln_f``,
         per-layer [(k, v, xk, xv)]; empty with ``remat``, where each layer
         runs under ``torch.utils.checkpoint``)."""
         cfg = self.cfg
-        x = params["embed"][tokens.long()].to(dt(cfg.compute_dtype))
+        x = embed_lookup(params["embed"], tokens).to(dt(cfg.compute_dtype))
         x = shard_act(x, (BATCH, None, None))
         positions = _arange(x.shape[1], x.device)
         enc_positions = _arange(enc_out.shape[1], x.device)
@@ -190,7 +198,8 @@ class EncDecLM(BaseModel):
         return rmsnorm(x, params["ln_f"], cfg.norm_eps), kvs
 
     def _unembed(self, params, x):
-        return x @ params["unembed"].to(x.dtype)
+        return reduce_grad(x) @ unshard_batch_axes(
+            params["unembed"]).to(x.dtype)
 
     def loss(self, params, batch):
         """Mean cross-entropy of batch {"frames", "tokens", "labels"} over
@@ -202,6 +211,24 @@ class EncDecLM(BaseModel):
         x, _ = self._decode_full(params, enc_out, batch["tokens"], remat)
         ce = softmax_xent(self._unembed(params, x), batch["labels"])
         return ce, {"ce": ce}
+
+    def input_shapes(self, sc):
+        """The dry run's inputs on the ``meta`` device: stub ``frames`` (B,
+        enc_seq_len, d_model) with the tokens of a train or prefill step,
+        one token a row to decode."""
+        cfg = self.cfg
+        B, S = sc.global_batch, sc.seq_len
+
+        def f(*shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        frames = f(B, cfg.enc_seq_len, cfg.d_model,
+                   dtype=dt(cfg.compute_dtype))
+        if sc.mode == "train":
+            return {"frames": frames, "tokens": f(B, S), "labels": f(B, S)}
+        if sc.mode == "prefill":
+            return {"frames": frames, "tokens": f(B, S)}
+        return {"token": f(B, 1)}
 
     # ------------------------------------------------------------------
     def init_cache(self, batch_size, capacity, device=None):
@@ -238,11 +265,9 @@ class EncDecLM(BaseModel):
         logits = self._unembed(params, x[:, -1])
         B, S = batch["tokens"].shape
         C = capacity or self.cache_capacity(S)
-        shape = (cfg.n_dec_layers, B, C, cfg.n_kv_heads, cfg.dh)
-        cache = {"k": torch.zeros(shape, dtype=cdt, device=x.device),
-                 "v": torch.zeros(shape, dtype=cdt, device=x.device),
-                 "xk": torch.stack([a[2] for a in kvs]).to(cdt),
-                 "xv": torch.stack([a[3] for a in kvs]).to(cdt)}
+        cache = self.new_cache(B, C, like=x)
+        for key, j in (("xk", 2), ("xv", 3)):
+            cache[key].copy_(torch.stack([a[j] for a in kvs]).to(cdt))
         # writes the ring's K/V in place and sets pos and t
         cache_prefill(cache, torch.stack([a[0] for a in kvs]),
                       torch.stack([a[1] for a in kvs]))
@@ -254,7 +279,8 @@ class EncDecLM(BaseModel):
         cross-attention attends to every encoder position, unmasked
         (``causal=False``: t is smaller than most encoder positions)."""
         cfg = self.cfg
-        x = params["embed"][batch["token"].long()].to(dt(cfg.compute_dtype))
+        x = embed_lookup(params["embed"], batch["token"]).to(
+            dt(cfg.compute_dtype))
         B = x.shape[0]
         H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
         t = cache["t"]
@@ -267,18 +293,17 @@ class EncDecLM(BaseModel):
             ck, cv = cache["k"][i], cache["v"][i]
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
             ap = lp["attn"]
-            q = apply_rope((h @ ap["wq"]).reshape(B, 1, H, dh), q_pos,
-                           cfg.rope_theta)
-            k1 = apply_rope((h @ ap["wk"]).reshape(B, 1, KV, dh), q_pos,
-                            cfg.rope_theta)
-            v1 = (h @ ap["wv"]).reshape(B, 1, KV, dh)
-            ck.index_copy_(1, slot, k1.to(ck.dtype))
-            cv.index_copy_(1, slot, v1.to(cv.dtype))
+            q = apply_rope(heads_whole(h @ ap["wq"], H).reshape(B, 1, H, dh),
+                           q_pos, cfg.rope_theta)
+            k1 = apply_rope(heads_whole(h @ ap["wk"], KV).reshape(
+                B, 1, KV, dh), q_pos, cfg.rope_theta)
+            v1 = heads_whole(h @ ap["wv"], KV).reshape(B, 1, KV, dh)
+            ring_write(ck, cv, k1, v1, slot)
             o = attention(q, ck, cv, q_pos=q_pos, kv_pos=kv_pos)
             x = x + (o.reshape(B, 1, H * dh) @ ap["wo"]).to(x.dtype)
             hx = rmsnorm(x, lp["ln_x"], cfg.norm_eps)
             xp = lp["xattn"]
-            qx = (hx @ xp["wq"]).reshape(B, 1, H, dh)
+            qx = heads_whole(hx @ xp["wq"], H).reshape(B, 1, H, dh)
             ox = attention(qx, cache["xk"][i], cache["xv"][i], q_pos=q_pos,
                            kv_pos=enc_positions, causal=False)
             x = x + (ox.reshape(B, 1, H * dh) @ xp["wo"]).to(x.dtype)

@@ -21,9 +21,13 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
+from ..sharding.context import _clean_spec, local_apply, placements
 from .common import ArchConfig, dense_init, groupnorm_heads
 
 G = 1  # B/C projection groups (ngroups=1, standard for mamba2 LMs)
+BATCH = ("pod", "data")
 
 
 def init_mamba_layer(gen, cfg: ArchConfig, dtype, n_layers: int) -> Dict:
@@ -137,6 +141,50 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, initial_state=None):
     return y.to(x.dtype), s.reshape(Bsz, H, N, P).to(x.dtype)
 
 
+def _ssd_local(x, dt, A, Bm, Cm, chunk: int, initial_state=None):
+    """``ssd_chunked``, on each rank's own rows and heads where the
+    arguments are DTensors (``model`` splits the heads where it divides
+    them; B and C, one group, stay whole): DTensor has no sharded rule
+    for the scan's batched products over flattened split dims."""
+    if not isinstance(x, DTensor):
+        return ssd_chunked(x, dt, A, Bm, Cm, chunk, initial_state)
+    seq, heads = (BATCH, None, "model", None), (BATCH, "model", None, None)
+    group = (BATCH, None, None, None)
+    specs = [seq, (BATCH, None, "model"), ("model",), group, group]
+    args = [x, dt, A, Bm, Cm]
+    if initial_state is not None:
+        specs.append(heads)
+        args.append(initial_state)
+    return local_apply(
+        lambda x, dt, A, Bm, Cm, *s: ssd_chunked(x, dt, A, Bm, Cm, chunk,
+                                                 *s),
+        specs, *args, n_out=2, out_specs=(seq, heads))
+
+
+def _ssd_step_local(state, x1, dt1, A, B1, C1):
+    """``ssd_step`` in place on ``state``, on each rank's own rows and
+    heads where the arguments are DTensors (DTensor has no sharded rule
+    for its batched product over flattened split dims). A state laid out
+    otherwise (``cache_specs`` splits a reduced model's largest of (H,
+    N, P)) is stepped in the rows-and-heads layout and copied back.
+    Returns y (B, H, P)."""
+    if not isinstance(state, DTensor):
+        return ssd_step(state, x1, dt1, A, B1, C1, out=state)[1]
+    heads = (BATCH, "model", None, None)
+    mesh = state.device_mesh
+    want = placements(_clean_spec(mesh, heads, state.shape), mesh)
+    work = state if tuple(state.placements) == want else \
+        state.redistribute(mesh, want)
+    y = local_apply(
+        lambda x, dt, A, B, C, s: ssd_step(s, x, dt, A, B, C, out=s)[1],
+        ((BATCH, "model", None), (BATCH, "model"), ("model",),
+         (BATCH, None, None), (BATCH, None, None), None),
+        x1, dt1, A, B1, C1, work)
+    if work is not state:
+        state.copy_(work)
+    return y
+
+
 def ssd_step(state, x1, dt1, A, B1, C1, out=None):
     """Exact single-step recurrence. state: (B, H, N, P); x1: (B, H, P);
     dt1: (B, H); B1, C1: (B, G, N). Returns (new state in state.dtype, y
@@ -171,9 +219,9 @@ def mamba_seq(lp, x, cfg: ArchConfig, initial_state=None):
     dtv = F.softplus((x @ lp["w_dt"]).float() + lp["dt_bias"])  # (B, L, H)
     A = -torch.exp(lp["A_log"])
     xh = xr.reshape(Bsz, L, H, P)
-    y, s_fin = ssd_chunked(xh, dtv, A, Bm.reshape(Bsz, L, G, N),
-                           Cm.reshape(Bsz, L, G, N), cfg.ssm_chunk,
-                           initial_state)
+    y, s_fin = _ssd_local(xh, dtv, A, Bm.reshape(Bsz, L, G, N),
+                          Cm.reshape(Bsz, L, G, N), cfg.ssm_chunk,
+                          initial_state)
     y = y + lp["D_skip"].reshape(H, 1) * xh.float()
     y = y * F.silu(z.float()).reshape(Bsz, L, H, P)
     y = groupnorm_heads(y, lp["ssm_norm"].reshape(H, P))
@@ -205,8 +253,8 @@ def mamba_step(lp, x, state, conv_buf, cfg: ArchConfig):
     dtv = F.softplus((x0 @ lp["w_dt"]).float() + lp["dt_bias"])  # (B, H)
     A = -torch.exp(lp["A_log"])
     xh = xr.reshape(Bsz, H, P)
-    _, y = ssd_step(state, xh, dtv, A, Bm.reshape(Bsz, G, N),
-                    Cm.reshape(Bsz, G, N), out=state)
+    y = _ssd_step_local(state, xh, dtv, A, Bm.reshape(Bsz, G, N),
+                        Cm.reshape(Bsz, G, N))
     y = y.float() + lp["D_skip"].reshape(H, 1) * xh.float()
     y = y * F.silu(z.float()).reshape(Bsz, H, P)
     y = groupnorm_heads(y, lp["ssm_norm"].reshape(H, P))

@@ -28,8 +28,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.wkv_step import wkv_step, wkv_step_plain
 from ..sharding import shard_act
+from ..sharding.context import (local_apply, reduce_grad, reduce_sums,
+                                replicate_dim, unshard_batch_axes)
 from .api import BaseModel, register_family
-from .common import (ArchConfig, dense_init, dt, embed_init,
+from .common import (ArchConfig, dense_init, dt, embed_init, embed_lookup,
                      groupnorm_heads, init_device, rmsnorm, softmax_xent,
                      stack_views)
 
@@ -77,7 +79,10 @@ def _init_layers(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict:
 
 def _shift(x, x_prev):
     """x: (B, L, D); x_prev: (B, D), the last token of the previous
-    segment."""
+    segment. A token-shift state ``cache_specs`` splits over ``model``
+    is made whole first, as x is: DTensor would otherwise split x's
+    columns to match, and then the mixing's per-branch views."""
+    x_prev = replicate_dim(x_prev, x_prev.ndim - 1)
     return torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
 
 
@@ -152,6 +157,20 @@ def wkv_chunked(r, k, v, logw, u, initial_state=None, chunk: int = 32):
     return o, S
 
 
+def _chunked_local(r, k, v, logw, u, state, chunk: int):
+    """``wkv_chunked``, on each rank's own rows and heads where the
+    arguments are DTensors (``model`` splits the heads where it divides
+    them): DTensor has no sharded rule for the scan's batched products
+    over flattened split dims. The state comes back split as the scan's
+    own (rows, heads), which the caller's ``copy_`` lays out as its
+    cache."""
+    seq, heads = (BATCH, None, "model", None), (BATCH, "model", None, None)
+    return local_apply(
+        lambda r, k, v, logw, u, s: wkv_chunked(r, k, v, logw, u, s, chunk),
+        (seq, seq, seq, seq, ("model", None), heads),
+        r, k, v, logw, u, state, n_out=2, out_specs=(seq, heads))
+
+
 def time_mix(lp, x, cfg: ArchConfig, x_prev, wkv_state, mode: str):
     """x: (B, L, D) pre-normed. Returns (out, new x_prev, new wkv state).
     ``mode``: "chunked" over the sequence (``wkv_chunked``, which scans a
@@ -175,8 +194,8 @@ def time_mix(lp, x, cfg: ArchConfig, x_prev, wkv_state, mode: str):
                         lp["first_u"], wkv_state, out_state=wkv_state)
         o = o[:, None]
     else:
-        o, S = wkv_chunked(r, k, v, logw, lp["first_u"], wkv_state,
-                           cfg.ssm_chunk)
+        o, S = _chunked_local(r, k, v, logw, lp["first_u"], wkv_state,
+                              cfg.ssm_chunk)
     o = groupnorm_heads(o, torch.ones((H, P), dtype=torch.float32,
                                       device=x.device))
     o = o.reshape(B, L, D) * lp["g_norm"] * g
@@ -199,12 +218,12 @@ def _layer_out(lp, x, cfg: ArchConfig, state, mode):
     """One layer from state {S, x_tm, x_cm}: (new x, S, x_tm, x_cm). It
     writes nothing, but in "step" mode the ``wkv_step`` kernel updates
     ``state["S"]`` in place (and returns it as S)."""
-    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    h = reduce_grad(rmsnorm(x, lp["ln1"], cfg.norm_eps))
     o, x_tm, S = time_mix(lp, h, cfg, state["x_tm"], state["S"], mode)
-    x = x + o
-    h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    x = x + reduce_sums(o)
+    h2 = reduce_grad(rmsnorm(x, lp["ln2"], cfg.norm_eps))
     o2, x_cm = channel_mix(lp, h2, state["x_cm"])
-    return shard_act(x + o2, (BATCH, None, None)), S, x_tm, x_cm
+    return shard_act(x + reduce_sums(o2), (BATCH, None, None)), S, x_tm, x_cm
 
 
 def _layer(lp, x, cfg: ArchConfig, state, mode):
@@ -266,15 +285,16 @@ class RWKV6(BaseModel):
         return rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
 
     def _unembed(self, params, x):
-        return x @ params["unembed"].to(x.dtype)
+        return reduce_grad(x) @ unshard_batch_axes(
+            params["unembed"]).to(x.dtype)
 
     def prefill(self, params, batch, capacity=None):
         """batch {"tokens": (B, S)} -> (last-position logits (B, Vp), cache
         {S, x_tm, x_cm, t = S})."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = params["embed"][tokens.long()].to(dt(cfg.compute_dtype))
-        cache = self.init_cache(x.shape[0], 1, device=x.device)
+        x = embed_lookup(params["embed"], tokens).to(dt(cfg.compute_dtype))
+        cache = self.new_cache(x.shape[0], 1, like=x)
         x = self._run(params, x, cache, "chunked")
         cache["t"].fill_(tokens.shape[1])
         return self._unembed(params, x[:, -1]), cache
@@ -283,7 +303,8 @@ class RWKV6(BaseModel):
         """batch {"token": (B, 1)} -> (logits (B, Vp), cache updated in
         place: every layer's state through ``wkv_step``, t advanced)."""
         cfg = self.cfg
-        x = params["embed"][batch["token"].long()].to(dt(cfg.compute_dtype))
+        x = embed_lookup(params["embed"], batch["token"]).to(
+            dt(cfg.compute_dtype))
         x = self._run(params, x, cache, "step")
         cache["t"].add_(1)
         return self._unembed(params, x[:, 0]), cache
@@ -297,10 +318,11 @@ class RWKV6(BaseModel):
         as prefill does, writing nothing; under ``torch.utils.checkpoint``
         where ``cfg.remat`` is set (the reference's ``jax.checkpoint``)."""
         cfg = self.cfg
-        x = params["embed"][batch["tokens"].long()].to(dt(cfg.compute_dtype))
+        x = embed_lookup(params["embed"], batch["tokens"]).to(
+            dt(cfg.compute_dtype))
         x = shard_act(x, (BATCH, None, None))
-        zero = {k: v[0] for k, v in self.init_cache(
-            x.shape[0], 1, device=x.device).items() if k != "t"}
+        zero = {k: v[0] for k, v in self.new_cache(
+            x.shape[0], 1, like=x).items() if k != "t"}
 
         def layer(x, lp):
             return _layer_out(lp, x, cfg, zero, "chunked")[0]

@@ -29,11 +29,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..sharding import shard_act
+from ..sharding.context import (reduce_grad, reduce_sums,
+                                unshard_batch_axes)
 from ..tree import tree_map
 from .api import BaseModel, register_family
-from .attention import attention, cache_prefill, init_kv_cache
-from .common import (dense_init, dt, embed_init, init_device, rmsnorm,
-                     softmax_xent, stack_views)
+from .attention import attention, cache_prefill, init_kv_cache, ring_write
+from .common import (dense_init, dt, embed_init, embed_lookup, init_device,
+                     rmsnorm, softmax_xent, stack_views)
 from .dense import _init_layers as init_attn_layers
 from .dense import _layer_decode, _layer_full
 from .mamba2 import init_mamba_layer, mamba_seq, mamba_step
@@ -89,15 +91,17 @@ class Zamba2(BaseModel):
         application runs under ``torch.utils.checkpoint``."""
         cfg = self.cfg
         shared = params.get("shared")
+        if shared is not None:
+            shared = tree_map(unshard_batch_axes, shared)
         apps = set(self._attn_layer_ids())
         tail = cfg.ssm_conv_width - 1
         got = {"ssm": [], "conv_x": [], "conv_B": [], "conv_C": [],
                "k": [], "v": []}
 
         def layer(x, lp, with_attn):
-            h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            h = reduce_grad(rmsnorm(x, lp["ln1"], cfg.norm_eps))
             o, s_fin = mamba_seq(lp, h, cfg)
-            x = x + o
+            x = x + reduce_sums(o)
             kv = None
             if with_attn:
                 x, kv, _ = _layer_full(x, shared, cfg, positions)
@@ -121,13 +125,15 @@ class Zamba2(BaseModel):
         return x, (got if collect else None)
 
     def _unembed(self, params, x):
-        return x @ params["unembed"].to(x.dtype)
+        return reduce_grad(x) @ unshard_batch_axes(
+            params["unembed"]).to(x.dtype)
 
     def loss(self, params, batch):
         """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,
         S) over the padded vocab: (ce, {"ce"})."""
         cfg = self.cfg
-        x = params["embed"][batch["tokens"].long()].to(dt(cfg.compute_dtype))
+        x = embed_lookup(params["embed"], batch["tokens"]).to(
+            dt(cfg.compute_dtype))
         x = shard_act(x, (BATCH, None, None))
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
@@ -171,13 +177,13 @@ class Zamba2(BaseModel):
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = params["embed"][tokens.long()].to(dt(cfg.compute_dtype))
+        x = embed_lookup(params["embed"], tokens).to(dt(cfg.compute_dtype))
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         x, got = self._run_full(params, x, positions, collect=True)
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
         logits = self._unembed(params, x[:, -1])
-        cache = self.init_cache(B, capacity or self.cache_capacity(S),
-                                device=x.device)
+        cache = self.new_cache(B, capacity or self.cache_capacity(S),
+                               like=x)
         for key in ("ssm", "conv_x", "conv_B", "conv_C"):
             cache[key].copy_(torch.stack(got[key]))
         cache["t"].fill_(S)
@@ -191,10 +197,12 @@ class Zamba2(BaseModel):
         """batch {"token": (B, 1)} -> (logits (B, Vp), cache updated in
         place)."""
         cfg = self.cfg
-        x = params["embed"][batch["token"].long()].to(dt(cfg.compute_dtype))
+        x = embed_lookup(params["embed"], batch["token"]).to(
+            dt(cfg.compute_dtype))
         t = cache["t"]
         app_of: Dict[int, int] = {l: a for a, l in
                                   enumerate(self._attn_layer_ids())}
+        shared = tree_map(unshard_batch_axes, params.get("shared", {}))
         if app_of:
             C = cache["attn_k"].shape[2]
             slot = (t % C).reshape(1).long()
@@ -211,13 +219,12 @@ class Zamba2(BaseModel):
                 cv = cache["attn_v"][app_of[i]]
 
                 def write_attend(q, k1, v1, ck=ck, cv=cv):
-                    ck.index_copy_(1, slot, k1.to(ck.dtype))
-                    cv.index_copy_(1, slot, v1.to(cv.dtype))
+                    ring_write(ck, cv, k1, v1, slot)
                     return attention(q[:, None], ck, cv, q_pos=t.reshape(1),
                                      kv_pos=kv_pos,
                                      window=cfg.sliding_window)[:, 0]
 
-                x = _layer_decode(x, params["shared"], t, cfg, write_attend)
+                x = _layer_decode(x, shared, t, cfg, write_attend)
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
         logits = self._unembed(params, x[:, 0])
         t.add_(1)

@@ -13,7 +13,10 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
+from ..sharding.context import local_value
 from ..tree import leaves, tree_map, unflatten
 
 PyTree = Any
@@ -26,6 +29,20 @@ def adamw_init(params: PyTree) -> PyTree:
             "v": tree_map(torch.clone, zeros),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=leaves(params)[0].device)}
+
+
+def _sharded_upd(upd, g, m, v, p):
+    """``upd`` on each rank's shard of DTensor moments (ZeRO-1): the
+    gradient and the param are laid out as the moments (which may split
+    a leaf over ``data`` too), the step's arithmetic runs rank-locally,
+    and the new param goes back to the param's placements. The scalars
+    ``upd`` closes over (lr, the bias corrections) are replicated."""
+    mesh, pl = m.device_mesh, tuple(m.placements)
+    new_p, m, v = local_map(upd, out_placements=(pl, pl, pl),
+                            in_placements=(pl, pl, pl, pl),
+                            device_mesh=mesh)(g.redistribute(mesh, pl), m, v,
+                                              p.redistribute(mesh, pl))
+    return new_p.redistribute(mesh, tuple(p.placements)), m, v
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:
@@ -57,6 +74,8 @@ def adamw_update(
         grads = tree_map(lambda g: g.float() * scale, grads)
     t = step.float()
     c1, c2 = 1 - b1 ** t, 1 - b2 ** t     # bias corrections, once a step
+    # replicated scalars (a sharded step's) enter a rank-local update whole
+    c1, c2, lr = (local_value(x) for x in (c1, c2, lr))
 
     def upd(g, m, v, p):
         g32 = g.float()
@@ -70,7 +89,8 @@ def adamw_update(
         new_p = (p.float() - lr * delta).to(p.dtype)
         return new_p, m, v
 
-    out = [upd(g, m, v, p) for g, m, v, p in
+    out = [_sharded_upd(upd, g, m, v, p) if isinstance(m, DTensor)
+           else upd(g, m, v, p) for g, m, v, p in
            zip(leaves(grads), leaves(state["m"]), leaves(state["v"]),
                leaves(params))]
     new_p = unflatten(params, [o[0] for o in out])

@@ -20,7 +20,7 @@ import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 _STATE = threading.local()
@@ -119,15 +119,19 @@ def shard_act(x, spec: Sequence):
     return x.redistribute(x.device_mesh, want)
 
 
-def local_apply(fn, specs: Sequence, *args, n_out: int = 1):
+def local_apply(fn, specs: Sequence, *args, n_out: int = 1,
+                out_specs: Optional[Sequence] = None):
     """``fn(*args)``, on each rank's own shards where the arguments are
     DTensors: each DTensor argument is laid out by its spec in ``specs``
-    (cleaned for its shape), other arguments pass as they are, and the
-    ``n_out`` outputs come back as DTensors in the first argument's
-    placements. The counterpart of GSPMD partitioning a computation that
-    needs no collective (rows over ``data``, heads over ``model``): DTensor
-    then neither plans each op nor meets ops it has no sharded rule for.
-    With plain tensors it is ``fn(*args)``."""
+    (cleaned for its shape; a spec of ``None`` keeps the argument's own
+    placements), other arguments pass as they are, and the ``n_out``
+    outputs come back as DTensors in the first argument's placements, or
+    each in its spec of ``out_specs`` (an axis kept only where it shards
+    an argument). The counterpart of GSPMD partitioning a computation
+    that needs no collective (rows over ``data``, heads over ``model``):
+    DTensor then neither plans each op nor meets ops it has no sharded
+    rule for. A body that does need one issues it itself, over
+    ``mesh.get_group(dim)``. With plain tensors it is ``fn(*args)``."""
     if not isinstance(args[0], DTensor):
         return fn(*args)
     mesh = args[0].device_mesh
@@ -135,18 +139,164 @@ def local_apply(fn, specs: Sequence, *args, n_out: int = 1):
     for a, spec in zip(args, specs):
         pl = None
         if isinstance(a, DTensor):
-            pl = placements(_clean_spec(mesh, spec, a.shape), mesh)
+            pl = (tuple(a.placements) if spec is None else
+                  placements(_clean_spec(mesh, spec, a.shape), mesh))
             if tuple(a.placements) != pl:
                 a = a.redistribute(mesh, pl)
         laid.append(a)
         pls.append(pl)
+    # an argument whole on a mesh dim that splits another (a weight
+    # beside split rows, K beside split query heads) gets on each rank
+    # only that rank's share of its gradient: pending sums there
+    split = {i for pl in pls if pl is not None
+             for i, p in enumerate(pl) if isinstance(p, Shard)}
+    for j, (a, pl) in enumerate(zip(laid, pls)):
+        whole = tuple(i for i in sorted(split) if pl is not None
+                      and not isinstance(pl[i], Shard))
+        if whole and a.requires_grad:
+            laid[j] = _PartialGrad.apply(a, whole)
+    if out_specs is None:
+        outs = (pls[0],) * n_out
+    else:
+        used = {name for pl in pls if pl is not None
+                for name, p in zip(mesh.mesh_dim_names, pl)
+                if isinstance(p, Shard)}
+        outs = tuple(placements(tuple(_keep_axes(ax, used) for ax in spec),
+                                mesh) for spec in out_specs)
 
     def local(*xs):
         return fn(*(_ContiguousGrad.apply(x) if isinstance(x, torch.Tensor)
                     and x.requires_grad else x for x in xs))
 
-    return local_map(local, out_placements=(pls[0],) * n_out,
+    return local_map(local, out_placements=outs,
                      in_placements=tuple(pls), device_mesh=mesh)(*laid)
+
+
+def _keep_axes(ax, used):
+    """A spec entry with only the axis names in ``used``."""
+    if ax is None:
+        return None
+    kept = tuple(a for a in (ax if isinstance(ax, tuple) else (ax,))
+                 if a in used)
+    return (kept if len(kept) > 1 else kept[0]) if kept else None
+
+
+def local_value(x):
+    """The whole value of ``x`` as a plain tensor on this rank: a
+    DTensor's pending sums reduced and every shard gathered (its local
+    tensor where it is replicated already); anything else as it is. For
+    the small replicated operands (positions, a step counter) a rank-local
+    body takes."""
+    return replicate_dim(x).to_local() if isinstance(x, DTensor) else x
+
+
+def all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``x`` reduced (``"sum"`` or ``"max"``) over the ranks of ``group``
+    (a ``ProcessGroup``), waited for: a collective a rank-local body
+    issues itself. No gradient flows through it."""
+    import torch.distributed._functional_collectives as funcol
+    out = funcol.all_reduce(x, op, group)
+    return out.wait() if hasattr(out, "wait") else out
+
+
+def as_dtensor(x, mesh):
+    """``x`` as a DTensor over ``mesh``: a plain tensor is taken as every
+    rank's equal copy (replicated), as ``implicit_replication`` takes it."""
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def unshard_batch_axes(x):
+    """FSDP's gather of a weight: a DTensor ``x`` with its splits over
+    ``pod`` and ``data`` (``param_specs(fsdp=True)``) gathered and its
+    ``model`` split kept, just before a product uses it. Its gradient
+    comes back reduce-scattered to the split. Left alone, DTensor may
+    keep the weight split and gather the activations instead, so every
+    ``data`` rank computes the whole batch. Anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    names = x.device_mesh.mesh_dim_names
+    want = tuple(Replicate() if names[i] in ("pod", "data") and
+                 isinstance(p, Shard) else p
+                 for i, p in enumerate(x.placements))
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def shard_dims(x, dim: int) -> Tuple[int, ...]:
+    """The mesh dims of more than one rank over which DTensor ``x``
+    shards its tensor dim ``dim`` (major first); ``()`` for a plain
+    tensor."""
+    if not isinstance(x, DTensor):
+        return ()
+    dim %= x.ndim
+    return tuple(i for i, p in enumerate(x.placements)
+                 if isinstance(p, Shard) and p.dim == dim
+                 and x.device_mesh.size(i) > 1)
+
+
+def shard_index(mesh, dims: Sequence[int]) -> int:
+    """This rank's block of a tensor dim split over mesh ``dims`` (major
+    first), as ``Shard`` numbers the blocks: ``0`` with no dim."""
+    coord = mesh.get_coordinate()
+    idx = 0
+    for i in dims:
+        idx = idx * mesh.size(i) + coord[i]
+    return idx
+
+
+def reduce_grad(x):
+    """``x`` itself, whose gradient comes back with its pending sums
+    reduced (a DTensor's ``Partial`` placements made ``Replicate``):
+    Megatron's ``f`` at the input of a column-split projection, where the
+    gradients of every head's or column's slice add up. Without it the
+    pending sums flow down the residual stream, and a later product of
+    such a gradient with a column-split weight has DTensor gather the
+    weight and compute every column on every rank. A plain tensor comes
+    back as it is."""
+    return _ReduceGrad.apply(x) if isinstance(x, DTensor) else x
+
+
+class _ReduceGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_sums(grad)
+
+
+def reduce_sums(x):
+    """A DTensor ``x`` with its pending sums reduced (``Partial`` made
+    ``Replicate``), its shards kept; anything else as it is."""
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in x.placements))
+
+
+class _PartialGrad(torch.autograd.Function):
+    """Identity on a DTensor whose gradient, on each rank, is that rank's
+    share only along mesh ``dims``: the gradient is handed on as pending
+    sums (``Partial``) there, which DTensor reduces where it must."""
+
+    @staticmethod
+    def forward(ctx, x, dims):
+        ctx.dims = dims
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        pls = tuple(Partial() if i in ctx.dims else p
+                    for i, p in enumerate(grad.placements))
+        return DTensor.from_local(grad.to_local(), grad.device_mesh, pls,
+                                  run_check=False, shape=grad.shape,
+                                  stride=grad.stride()), None
 
 
 class _ContiguousGrad(torch.autograd.Function):

@@ -21,7 +21,8 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-from torch.distributed.tensor import distribute_tensor
+import torch
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
 from ..tree import leaves, unflatten
 from .context import Spec, mesh_shape, placements
@@ -259,6 +260,49 @@ def distribute(tree: Any, specs: Any, mesh) -> Any:
         for x, s in zip(leaves(tree), leaves_of_specs(specs))])
 
 
+def local_shape(shape, pls, mesh) -> Tuple[int, ...]:
+    """One rank's shard of a ``shape`` laid out by placements ``pls`` over
+    ``mesh`` (the specs split every dim evenly)."""
+    out = list(shape)
+    for i, p in enumerate(pls):
+        if isinstance(p, Shard):
+            out[p.dim] //= mesh.size(i)
+    return tuple(out)
+
+
+def laid_out(tree: Any, specs: Any, mesh, make, device=None) -> Any:
+    """DTensors shaped as ``tree``'s leaves (tensors or ``meta`` tensors:
+    their shapes and dtypes), laid out over ``mesh`` by ``specs``: each
+    rank allocates only its shard, ``make(shape, dtype=, device=)``
+    (``torch.zeros``, or ``torch.empty`` under a fake tensor mode). No
+    collective and no data moves."""
+    device = device or mesh.device_type
+
+    def one(x, spec):
+        pls = placements(spec, mesh)
+        local = make(local_shape(x.shape, pls, mesh), dtype=x.dtype,
+                     device=device)
+        return DTensor.from_local(local, mesh, pls, run_check=False,
+                                  shape=tuple(x.shape),
+                                  stride=_strides(tuple(x.shape)))
+
+    return unflatten(tree, [one(x, s) for x, s in
+                            zip(leaves(tree), leaves_of_specs(specs))])
+
+
+def zeros_laid_out(tree: Any, specs: Any, mesh, device=None) -> Any:
+    """``laid_out`` with zeros."""
+    return laid_out(tree, specs, mesh, torch.zeros, device)
+
+
+def _strides(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    out, n = [], 1
+    for d in reversed(shape):
+        out.append(n)
+        n *= max(d, 1)
+    return tuple(reversed(out))
+
+
 def leaves_of_specs(specs: Any) -> List[Spec]:
     """The ``Spec`` leaves of a spec tree in ``tree.leaves``'s order (a
     ``Spec`` is a tuple, so ``tree.leaves`` would walk into it)."""
@@ -268,5 +312,6 @@ def leaves_of_specs(specs: Any) -> List[Spec]:
 
 
 __all__ = ["Spec", "batch_spec", "cache_specs", "distribute", "divisible",
-           "leaf_paths", "leaves_of_specs", "map_with_path", "param_specs",
-           "placements", "spec_for_leaf"]
+           "laid_out", "leaf_paths", "leaves_of_specs", "local_shape",
+           "map_with_path", "param_specs", "placements", "spec_for_leaf",
+           "zeros_laid_out"]

@@ -1,5 +1,5 @@
 from .loop import (Trainer, init_train_state, make_train_step, shard_batch,
-                   shard_train_state)
+                   shard_train_state, train_state_shapes)
 
 __all__ = ["Trainer", "init_train_state", "make_train_step", "shard_batch",
-           "shard_train_state"]
+           "shard_train_state", "train_state_shapes"]

@@ -109,6 +109,14 @@ def init_train_state(model: BaseModel, generator, device=None) -> Dict:
                                 device=leaves(params)[0].device)}
 
 
+def train_state_shapes(model: BaseModel) -> Dict:
+    """The {params, opt, step} tree of ``init_train_state`` on the ``meta``
+    device: shapes and dtypes, no storage, nothing drawn."""
+    params = model.param_shapes()
+    return {"params": params, "opt": adamw_init(params),
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+
 class Trainer:
     """Single-host convenience trainer (launcher / integration tests):
     ``cosine_warmup`` over ``total_steps`` with ``min(100, total_steps //

@@ -215,6 +215,38 @@ def _decode_inputs(B, H, KV, dh, S, seed):
     return q, k, v, np.int32(t), kv_pos
 
 
+@pytest.mark.parametrize("live", ["prefix", "none"])
+def test_decode_attention_plain_log_sum_exp(live):
+    """``return_lse``: the plain version's output equals the plain
+    ``attention`` one, and its lse the float64 log-sum-exp of the masked
+    scaled scores (an empty ring: -1e30 + log S); two halves of the slots
+    combined by their lse's give the whole (the sharded decode's
+    combine)."""
+    B, H, KV, dh, S = 3, 8, 2, 32, 64
+    q, k, v, t, kv_pos = (torch.from_numpy(np.asarray(a)) for a in
+                          _decode_inputs(B, H, KV, dh, S, seed=7))
+    if live == "none":
+        kv_pos = torch.full_like(kv_pos, -1)
+    o, lse = tops.decode_attention_plain(q, k, v, t, kv_pos, return_lse=True)
+    torch.testing.assert_close(o, tops.decode_attention_plain(
+        q, k, v, t, kv_pos), rtol=2e-6, atol=2e-6)
+    s = torch.einsum("bhd,bshd->bhs", q.double(), k.double().repeat_interleave(
+        H // KV, dim=2)) / np.sqrt(dh)
+    s = torch.where((kv_pos >= 0) & (kv_pos <= t), s,
+                    torch.full_like(s, -1e30))
+    torch.testing.assert_close(lse.double(), torch.logsumexp(s, -1),
+                               rtol=1e-6, atol=1e-5)
+    half = [tops.decode_attention_plain(q, k[:, i:i + S // 2],
+                                        v[:, i:i + S // 2], t,
+                                        kv_pos[i:i + S // 2],
+                                        return_lse=True)
+            for i in (0, S // 2)]
+    top = torch.maximum(half[0][1], half[1][1])
+    w = [torch.exp(h[1] - top)[..., None] for h in half]
+    comb = (w[0] * half[0][0] + w[1] * half[1][0]) / (w[0] + w[1])
+    torch.testing.assert_close(comb, o, rtol=2e-5, atol=2e-6)
+
+
 @pytest.mark.parametrize("B,H,KV,dh,S,win,dtype", DECODE_GRID)
 def test_decode_attention_matches_reference_kernel(jref, B, H, KV, dh, S,
                                                    win, dtype):
@@ -604,6 +636,31 @@ def test_cuda_decode_attention_cluster_split(cuda, B, H, KV, dh, S, dtype, n,
     want = tops.decode_attention_plain(*args)
     tol = 4e-3 if dtype == "bfloat16" else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, tops.decode_attention(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prefix", "empty"])
+@pytest.mark.parametrize("B,H,KV,dh,S,dtype", [
+    (8, 64, 8, 128, 2048, "bfloat16"),       # a qwen2_72b slot shard
+    (9, 32, 8, 64, 512, "bfloat16"),         # split over 2
+    (1, 8, 2, 128, 2048, "float32"),         # split over 8
+])
+def test_cuda_decode_attention_log_sum_exp(cuda, B, H, KV, dh, S, dtype,
+                                           kind):
+    """``return_lse`` on the card (the sharded decode's combine reads
+    it): the lse within 1e-4 of the plain version's, unsplit and over a
+    cluster, an empty ring's included; the output bit-equal to the
+    launch without it."""
+    q, k, v, _, _ = _decode_inputs(B, H, KV, dh, S, seed=S + B)
+    kv_pos, t = _split_ring(kind, S, seed=S)
+    td = getattr(torch, dtype)
+    args = (torch.from_numpy(q).to(cuda, td), torch.from_numpy(k).to(cuda, td),
+            torch.from_numpy(v).to(cuda, td),
+            torch.tensor(t, device=cuda), torch.from_numpy(kv_pos).to(cuda))
+    got, lse = tops.decode_attention(*args, return_lse=True)
+    _, want = tops.decode_attention_plain(*args, return_lse=True)
+    torch.testing.assert_close(lse, want, rtol=1e-4, atol=1e-4)
     assert torch.equal(got, tops.decode_attention(*args))
 
 
