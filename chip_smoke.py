@@ -268,6 +268,18 @@ Phases, each printing one JSON line:
    launched 16 layers x 16 steps = 256 times in the sharded decode; the
    same for ``rwkv6_7b`` at full width cut to 4 layers, ``wkv_step``
    launched 4 x 16 = 64 times.
+13c. contracts — after dryrun (``--only contracts`` runs it alone): the
+   port's contract gate on the card. ``repro_torch.analysis``'s graphs
+   pass (H001-H004) on full-width ``smollm_135m`` engines (bf16, every
+   layer): a ring and a chunked paged ``ExpertHub`` of 4 slots over
+   ``ExpertMesh((cuda:0,) * 2)`` and a speculating engine on the
+   wrap-risk grid, every decode and verify body captured under a
+   recording dispatch mode and ``torch.cuda.set_sync_debug_mode
+   ("error")``; its kernels pass (K001-K004, capture, not execution);
+   the ``H100`` table the planners read held against
+   ``get_device_properties`` and ``expert_score_max_clusters``, and the
+   pass's shared-memory formulas against the C entries'. One line with
+   each rule's count of findings; an unbaselined error fails the run.
 14. launch_serve — the serving launcher ``repro_torch.launch.serve.main``
    on its default device (the card), twice: the reference launcher's
    family cycle (reduced RWKV6, Zamba2, smollm, qwen2_72b, and llama in
@@ -348,7 +360,8 @@ def emit(obj) -> None:
 
 
 #: the phases ``--only`` can run on their own
-ONLY = ("breakdown_moe", "train_lm", "train_sharded", "dryrun")
+ONLY = ("breakdown_moe", "train_lm", "train_sharded", "dryrun",
+        "contracts")
 
 
 def main(argv=None) -> int:
@@ -484,6 +497,7 @@ def main(argv=None) -> int:
     emit(train_lm_phase(np, torch, dev, ops))
     emit(train_sharded_phase(np, torch, dev, ops))
     emit(dryrun_phase(np, torch, dev, ops))
+    emit(contracts_phase(np, torch, dev, smi))
     emit(launch_serve_phase(np, torch, dev, ops))
     examples = examples_phase(np, torch, dev, ops)
     emit(examples)
@@ -522,6 +536,8 @@ def only_phases(np, torch, dev, ops, names, smi) -> int:
             del params
             gc.collect()
             torch.cuda.empty_cache()
+        elif name == "contracts":
+            emit(contracts_phase(np, torch, dev, smi))
         else:
             phase = {"train_lm": train_lm_phase,
                      "train_sharded": train_sharded_phase,
@@ -1171,7 +1187,7 @@ def graph_stats(engines):
             "captured": sum(s.decode_captured for s in st),
             "capture_ms": sum(s.decode_capture_ms for s in st),
             "swaps": sum(s.decode_swaps for s in st),
-            "buckets": sorted({b for e in engines for b in e.core._graphs}),
+            "buckets": sorted({b for s in st for b in s.decode_graphs}),
             "bound": sum(e.core.executable_bounds()["decode"]
                          for e in engines)}
 
@@ -1315,7 +1331,7 @@ def serve_phase(np, torch, dev, ops):
         "route_rows": bucket_for(len(reqs), row_buckets),
         "group_rows": max(nb for _, _, nb in groups),
         "route_groups": groups,
-        "decode_rows": max(max(e.core._graphs, default=1)
+        "decode_rows": max(max(e.stats.decode_graphs, default=1)
                            for e in engines),
         # q_pos of the last decode step of the longest prompt bucket: the
         # fullest ring the main path gave the decode kernel
@@ -2318,7 +2334,7 @@ def serve_mesh_phase(np, torch, dev, ops, shapes, banked, smi):
     warm_graphs(RoutedServer, matcher, fleets[True][0], reqs, dev,
                 placement=fleets[True][1])
     warm = graph_stats([bank])
-    counts = {len(gs) for gs in bank.core._graphs.values()}
+    counts = set(bank.stats.decode_graphs.values())
     if counts != {MESH_POSITIONS} or warm["captured"] != \
             warm["decode_compiles"]:
         raise AssertionError(f"serve_mesh warm-up graphs: {warm}")
@@ -2823,7 +2839,7 @@ def serve_rwkv_phase(np, torch, dev, ops, shapes):
             "route_chunks": chunks, "routed": routed,
             "prefill_buckets": buckets,
             "rwkv_decode_rows_max": max(
-                max(e.core._graphs, default=0)
+                max(e.stats.decode_graphs, default=0)
                 for e, r in zip(fleet, is_rwkv) if r)}
     same_tokens("serve_rwkv", tokens,
                 lambda a, b: a[0] == b[0] and np.array_equal(a[1], b[1]))
@@ -3123,7 +3139,8 @@ def serve_moe_phase(np, torch, dev, ops, shapes):
         if layout == "ring":
             moe_engines = [graph[e].backend for e, m in enumerate(is_moe)
                            if m]
-            rows = max(max(e.core._graphs, default=0) for e in moe_engines)
+            rows = max(max(e.stats.decode_graphs, default=0)
+                       for e in moe_engines)
             q_pos = max(sb for e in moe_engines
                         for _, sb in e.core._prefill_shapes) + 16 - 2
             del graph
@@ -3427,7 +3444,7 @@ def serve_zamba_phase(np, torch, dev, ops, shapes):
                                 for n, e in zip(names, fleet)}}
     same_tokens("serve_zamba", tokens,
                 lambda a, b: a[0] == b[0] and np.array_equal(a[1], b[1]))
-    rows = max(max(e.core._graphs, default=0)
+    rows = max(max(e.stats.decode_graphs, default=0)
                for e, z in zip(engines, is_zamba) if z)
     return ({"phase": "serve_zamba", "config": zcfg.name,
              "experts": {n: f for n, f, _ in ZAMBA_FLEET},
@@ -5476,6 +5493,92 @@ def dryrun_phase(np, torch, dev, ops):
     out["cli"] = dryrun_cli(torch, procs)
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+#: rules the contracts phase counts
+CONTRACT_RULES = ("H001", "H002", "H003", "H004", "K001", "K002", "K003",
+                  "K004")
+
+
+def contracts_phase(np, torch, dev, smi):
+    """The port's graph and kernel contract passes on the card (see the
+    module docstring, 13c). Raises on an unbaselined error."""
+    from repro_torch.analysis import (apply_baseline, format_report,
+                                      load_baseline)
+    from repro_torch.analysis import graph_contracts, kernel_check
+    from repro_torch.kernels import build
+    from repro_torch.kernels.expert_score import max_clusters
+
+    t0 = time.perf_counter()
+    card = torch.device("cuda", torch.cuda.current_device())
+    found = graph_contracts.run(card, reduced=False)
+    graphs_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    found += kernel_check.run()
+    kernels_s = time.perf_counter() - t1
+    counts = {r: sum(v.rule == r for v in found) for r in CONTRACT_RULES}
+    active, suppressed = apply_baseline(found, load_baseline())
+    errors = [v for v in active if v.severity == "error"]
+    # the H100 table the planners read, against this card
+    props = torch.cuda.get_device_properties(card)
+    table = kernel_check.H100
+    card_vals = {"sm_count": props.multi_processor_count,
+                 "smem_optin": getattr(props, "shared_memory_per_block_optin",
+                                       None)}
+    problems = []
+    if card_vals["sm_count"] != table["sm_count"] or card_vals[
+            "smem_optin"] not in (None, table["smem_optin"]):
+        problems.append(f"H100 table {table} against the card's "
+                        f"{card_vals}")
+    # every cluster size the planner can choose at the served widths
+    # (D 784, H 128: 7 to 16 for any batch), at a 1-row and a full tile
+    D, H = 784, 128
+    clusters, off = {}, {}
+    for rows in (1, 32):
+        for n in kernel_check.expert_plans(32, D, H, 6):
+            key = f"n{n}_rows{rows}"
+            clusters[key] = max_clusters(card.index, D, H, n, rows)
+            want = kernel_check.h100_clusters(n, rows)
+            if clusters[key] != want:
+                off[key] = (want, clusters[key])
+    if off:
+        problems.append(f"expert_score clusters resident (table, card) "
+                        f"differ at n = {off}")
+    # the pass's shared-memory formulas against the C entries'
+    lib, limits = build.library(), kernel_check.read_limits()
+    smem_off = []
+    for D_, H_, n, r in ((784, 128, 16, 32), (784, 128, 8, 17),
+                         (98, 128, 8, 17), (784, 256, 13, 32)):
+        want = lib.expert_score_smem_bytes(D_, H_, n, r)
+        if kernel_check.expert_smem(D_, H_, n, r) != want:
+            smem_off.append(("expert_score", D_, H_, n, r, want))
+    for S, n_lp, G, dh, bf in ((256, 0, 4, 64, 1), (4096, 0, 16, 128, 1),
+                               (256, 32, 3, 64, 1), (64, 8, 2, 32, 0)):
+        want = lib.decode_attention_smem_bytes(S, n_lp, G, dh, bf)
+        if kernel_check.decode_smem(limits, S, n_lp, G, dh,
+                                    2 if bf else 4) != want:
+            smem_off.append(("decode_attention", S, n_lp, G, dh, want))
+    if smem_off:
+        problems.append(f"shared-memory formulas differ from the C "
+                        f"entries at {smem_off}")
+    if errors or problems:
+        print(json.dumps({"contracts_counts": counts,
+                          "expert_score_clusters": clusters,
+                          "card": card_vals}), file=sys.stderr)
+        raise AssertionError("contracts: " + "; ".join(problems) + (
+            "\nunbaselined findings\n" + format_report(errors)
+            if errors else ""))
+    return {"phase": "contracts", "gpu": smi, "rule_counts": counts,
+            "baselined": len(suppressed),
+            "warnings": sum(v.severity != "error" for v in active),
+            "engines": "smollm_135m full width (bf16, every layer): ring "
+                       "and chunked paged 4-slot hubs over 2 mesh "
+                       "positions, a spec k 2 engine",
+            "sm_count": card_vals["sm_count"],
+            "smem_optin": card_vals["smem_optin"],
+            "expert_score_clusters": clusters,
+            "graphs_s": graphs_s, "kernels_s": kernels_s,
+            "seconds": time.perf_counter() - t0}
 
 
 def dryrun_cli_start():

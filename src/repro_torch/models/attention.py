@@ -145,7 +145,9 @@ def _sharded_attention(q, k, v, *, q_pos, kv_pos, window, chunk, causal):
         def local(q, k, v):     # a contiguous run of KV heads, G' each
             return attend(q, k[:, :, lo:lo + n], v[:, :, lo:lo + n])
     else:
-        idx = torch.tensor(kv_of, device=k.device)
+        # kv_of on the device by arithmetic: a host list copied in would
+        # be a pageable copy, which a captured step cannot hold
+        idx = (torch.arange(Hl, device=k.device) + c * Hl) // G
 
         def local(q, k, v):     # one KV head a query head
             return attend(q, k.index_select(2, idx), v.index_select(2, idx))

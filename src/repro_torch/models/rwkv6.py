@@ -86,13 +86,26 @@ def _shift(x, x_prev):
     return torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
 
 
+def _lora_in(x, w):
+    """``tanh(x @ w)`` in f32, a LoRA's first product, on each rank's own
+    rows. Its gradient comes back with pending sums from the
+    head-split products; left to DTensor, they are reduce-scattered onto
+    the sequence, and with a batch shard too small to split (8 rows a
+    rank on the multi-pod mesh) the weight gradient's token dim is split
+    over pod, data and, strided, model, which DTensor's propagation
+    cannot take. Here only the (B, L, rank) gradient is gathered."""
+    return local_apply(lambda x, w: torch.tanh(x.float() @ w),
+                       ((BATCH, None, None), (None, None)), x, w,
+                       out_specs=((BATCH, None, None),))
+
+
 def _ddlerp(lp, x, xs):
     """Data-dependent lerp giving the 5 mixed branch inputs, in the order
     w, k, v, r, g (``maa_base[0]`` is w's)."""
     dx = xs - x
     xxx = (x + dx * lp["maa_x"]).to(x.dtype)
     r = lp["maa_w1"].shape[1] // N_MIX
-    lo = torch.tanh(xxx.float() @ lp["maa_w1"])
+    lo = _lora_in(xxx, lp["maa_w1"])
     lo = lo.reshape(x.shape[:-1] + (N_MIX, r))
     mixes = lp["maa_base"] + torch.einsum("...kr,krd->...kd", lo,
                                           lp["maa_w2"])
@@ -184,7 +197,7 @@ def time_mix(lp, x, cfg: ArchConfig, x_prev, wkv_state, mode: str):
     k = (xk @ lp["w_kk"]).reshape(B, L, H, P)
     v = (xv @ lp["w_vv"]).reshape(B, L, H, P)
     g = F.silu((xg @ lp["w_g"]).float())
-    lo = torch.tanh(xw.float() @ lp["decay_lora1"]) @ lp["decay_lora2"]
+    lo = _lora_in(xw, lp["decay_lora1"]) @ lp["decay_lora2"]
     w_raw = lp["decay_w0"].reshape(D) + lo
     logw = -torch.exp(w_raw).reshape(B, L, H, P)
     r = shard_act(r, (BATCH, None, "model", None))
@@ -209,8 +222,13 @@ def channel_mix(lp, x, x_prev):
     xk = (x + dx * lp["ch_maa_k"]).to(x.dtype)
     xr = (x + dx * lp["ch_maa_r"]).to(x.dtype)
     k = torch.square(torch.relu(xk @ lp["w_ch_k"]))
-    out = torch.sigmoid((xr @ lp["w_ch_r"]).float()).to(x.dtype) \
-        * (k @ lp["w_ch_v"])
+    # the row-split product's sums are reduce-scattered onto the columns
+    # before the gate multiplies them, and the columns gathered after (the
+    # bytes of the all-reduce the residual made): left pending, the gate's
+    # gradient, and so ``w_ch_r``'s, is pending too, and DTensor splits its
+    # token dim as in ``_lora_in``
+    out = replicate_dim(torch.sigmoid((xr @ lp["w_ch_r"]).float()).to(
+        x.dtype) * reduce_sums(k @ lp["w_ch_v"], -1), -1)
     return out, x[:, -1]
 
 

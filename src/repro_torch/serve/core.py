@@ -111,7 +111,8 @@ class EngineStats:
 
     ``decode_compiles`` counts the engine's ``DecodeGraph`` objects, one
     per (mesh position, decode batch bucket) run so far (one position
-    without a mesh): on CUDA each holds one captured
+    without a mesh; ``decode_graphs`` gives them by bucket): on CUDA each
+    holds one captured
     graph (``decode_captured`` of them are captured so far; their
     capture took ``decode_capture_ms`` of host time), as each of the
     reference's holds one executable. Prefill runs eagerly and compiles
@@ -170,16 +171,23 @@ class EngineStats:
             else 0
 
     @property
+    def decode_graphs(self) -> Dict[int, int]:
+        """Decode batch bucket -> its step graphs (one a mesh position),
+        for the buckets run so far, ascending: the ladder's shape."""
+        return {b: len(gs) for b, gs in sorted(self._core._graphs.items())} \
+            if self._core else {}
+
+    def _step_graphs(self, kind: str) -> List[Any]:
+        return [g for k, _, g in self._core.step_graphs() if k == kind] \
+            if self._core else []
+
+    @property
     def decode_captured(self) -> int:
-        return sum(g.graph is not None for g in
-                   self._core._steps(self._core._graphs)) if self._core \
-            else 0
+        return sum(g.graph is not None for g in self._step_graphs("decode"))
 
     @property
     def decode_capture_ms(self) -> float:
-        return sum(g.capture_ms for g in
-                   self._core._steps(self._core._graphs)) if self._core \
-            else 0.0
+        return sum((g.capture_ms for g in self._step_graphs("decode")), 0.0)
 
     @property
     def verify_compiles(self) -> int:
@@ -188,15 +196,11 @@ class EngineStats:
 
     @property
     def verify_captured(self) -> int:
-        return sum(g.graph is not None for g in
-                   self._core._steps(self._core._verify_graphs)) \
-            if self._core else 0
+        return sum(g.graph is not None for g in self._step_graphs("verify"))
 
     @property
     def verify_capture_ms(self) -> float:
-        return sum(g.capture_ms for g in
-                   self._core._steps(self._core._verify_graphs)) \
-            if self._core else 0.0
+        return sum((g.capture_ms for g in self._step_graphs("verify")), 0.0)
 
     @property
     def acceptance_rate(self) -> float:
@@ -601,11 +605,15 @@ class EngineCore:
             ev.synchronize()
         return host.numpy()
 
-    @staticmethod
-    def _steps(ladder: Mapping[Any, Sequence[Any]]) -> List[Any]:
-        """Every step graph of a ladder (``_graphs`` or
-        ``_verify_graphs``), each bucket's positions in order."""
-        return [g for gs in ladder.values() for g in gs]
+    def step_graphs(self) -> List[Tuple[str, Any, Any]]:
+        """``(kind, key, graph)`` for every step graph made so far:
+        ``("decode", Bb, g)`` and ``("verify", (Bb, k), g)``, each
+        bucket's positions in order. The one enumeration of the ladder:
+        ``EngineStats``, retirement and the contract checks read it."""
+        return [(kind, key, g)
+                for kind, ladder in (("decode", self._graphs),
+                                     ("verify", self._verify_graphs))
+                for key, gs in ladder.items() for g in gs]
 
     # -- device work -----------------------------------------------------
     def _expert_pool(self, e: int) -> Dict[str, torch.Tensor]:
@@ -1504,8 +1512,7 @@ class EngineCore:
         """Drop a finished wave: nothing of it needs copying out of any
         step graph any more, and a paged wave's pages go back."""
         self._active.remove(w)
-        for g in (*self._steps(self._graphs),
-                  *self._steps(self._verify_graphs)):
+        for _, _, g in self.step_graphs():
             g.release(w)
         if self.kv_layout == "paged":
             self._retire_paged(w)

@@ -58,8 +58,8 @@ reads the store with no lock held, and publishes the result (params
 first, then the ``staged`` state; or the ``cold`` reset and the recorded
 error) under ``_lock``. Everything both threads touch is guarded by
 ``_lock``; ``_cv`` (a condition on that lock) is the one blocking point.
-``THREAD_CONTRACT`` states this as data, in the form the reference
-package's race analyzer reads.
+``THREAD_CONTRACT`` states this as data, in the form the race analyzer
+(``repro_torch.analysis.races``) reads.
 """
 from __future__ import annotations
 

@@ -172,7 +172,8 @@ def local_apply(fn, specs: Sequence, *args, n_out: int = 1,
                      in_placements=tuple(pls), device_mesh=mesh)(*laid)
 
 
-def _keep_axes(ax, used):
+def _keep_axes(ax: Optional[str | Tuple[str, ...]],
+               used: Sequence[str]) -> Optional[str | Tuple[str, ...]]:
     """A spec entry with only the axis names in ``used``."""
     if ax is None:
         return None
@@ -270,14 +271,16 @@ class _ReduceGrad(torch.autograd.Function):
         return reduce_sums(grad)
 
 
-def reduce_sums(x):
+def reduce_sums(x, dim: Optional[int] = None):
     """A DTensor ``x`` with its pending sums reduced (``Partial`` made
-    ``Replicate``), its shards kept; anything else as it is."""
+    ``Replicate``; with ``dim``, reduce-scattered onto tensor dim
+    ``dim``), its shards kept; anything else as it is."""
     if not isinstance(x, DTensor) or not any(p.is_partial()
                                              for p in x.placements):
         return x
+    to = Replicate() if dim is None else Shard(dim % x.ndim)
     return x.redistribute(x.device_mesh, tuple(
-        Replicate() if p.is_partial() else p for p in x.placements))
+        to if p.is_partial() else p for p in x.placements))
 
 
 class _PartialGrad(torch.autograd.Function):

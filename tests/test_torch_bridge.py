@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro.configs import get_config
 from repro.core import build_matcher, init_ae
 from repro.models import build_model

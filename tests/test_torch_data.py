@@ -6,6 +6,7 @@ the same way)."""
 import numpy as np
 import pytest
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro import data as jdata
 from repro_torch import data as tdata
 

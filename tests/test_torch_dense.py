@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro.configs import get_config
 from repro.models import build_model
 from repro_torch.bridge import to_torch

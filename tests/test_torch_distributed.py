@@ -57,6 +57,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 import repro.models.moe as jmoe
 from repro.configs import get_config
 from repro.models import build_model

@@ -38,6 +38,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun
 from repro_torch.models.common import SHAPES, ShapeConfig
@@ -201,6 +202,75 @@ def test_vocab_parallel_loss_gathers_no_vocab(reference):
         assert comm.get_total_counts() > 0          # the reductions ran
         assert not any(s and s[-1] == V for s in gathered), gathered
         assert logits.grad.placements == logits.placements
+    finally:
+        dist.destroy_process_group()
+
+
+def test_rwkv6_layer_lays_out_on_the_multi_pod_mesh(reference):
+    """One ``rwkv6_7b`` layer (``d_model`` 1024, 16 heads of 64: the
+    family's head width, ``model`` dividing the heads), forward and
+    backward on fake shards of the multi-pod mesh (pod 2 x data 16 x
+    model 16) with 8 rows a rank: the layout where the full train_4k
+    step failed. The row-parallel sums that meet an elementwise product
+    (the channel mix's ``k @ w_ch_v``) and the gradients of the LoRA
+    products (``_ddlerp``'s mixes, the decay's ``tanh``) reach DTensor
+    with a token dim split over pod, data and, strided, model, whose
+    propagation fails on fake tensors (``aten._local_scalar_dense``)
+    unless the channel mix's sums are reduce-scattered first and the
+    LoRAs' first products run on each rank's rows. The input's gradient
+    keeps its row split with no pending sums, and no (B, L, 5, D)
+    gradient of the mixes is all-reduced: only the LoRA's (B, L, rank)
+    one is gathered."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import rwkv6
+    from repro_torch.models.common import stack_views
+    from repro_torch.sharding.context import mesh_context
+    from repro_torch.sharding.rules import laid_out, param_specs
+
+    cfg = get_config("rwkv6_7b").replace(
+        n_layers=1, d_model=1024, n_heads=16, n_kv_heads=16, d_ff=512,
+        vocab_size=512)
+    model = build_model(cfg)
+    B, L = 256, 32
+    reduced = []
+
+    class Record(CommDebugMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if out is not NotImplemented and "all_reduce" in str(func):
+                reduced.append(tuple(out.shape))
+            return out
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=512)
+    try:
+        mesh = make_mesh((2, 16, 16), ("pod", "data", "model"), "cpu")
+        pshapes = model.param_shapes()
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            params = laid_out(pshapes, param_specs(pshapes, mesh), mesh,
+                              torch.empty)
+            x = DTensor.from_local(
+                torch.empty(B // 32, L, cfg.d_model, dtype=torch.bfloat16),
+                mesh, (Shard(0), Shard(0), Replicate()),
+                run_check=False).requires_grad_()
+            with mesh_context(mesh), implicit_replication(), Record():
+                lp = next(stack_views(params["layers"]))
+                state = {k: v[0] for k, v in model.new_cache(
+                    B, 1, like=x).items() if k != "t"}
+                y = rwkv6._layer_out(lp, x, cfg, state, "chunked")[0]
+                y.backward(torch.ones_like(y))
+        assert tuple(x.grad.placements[:2]) == tuple(x.placements[:2])
+        assert not any(p.is_partial() for p in x.grad.placements)
+        assert reduced, "the layer's sums were never reduced"
+        assert not any(s[-2:] == (rwkv6.N_MIX, cfg.d_model)
+                       for s in reduced), reduced
     finally:
         dist.destroy_process_group()
 

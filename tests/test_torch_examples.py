@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro.checkpoint import load_pytree as jload
 from repro.checkpoint import save_pytree as jsave
 from repro.configs import get_config

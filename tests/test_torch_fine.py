@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.kernels import ops as tops
 
 

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro.checkpoint import load_expert as jload_expert
 from repro.checkpoint import save_expert as jsave_expert
 from repro.configs import get_config
@@ -666,15 +667,15 @@ def test_popularity_counter_reads_under_hub_lock(model, params4):
 
 
 def test_race_analyzer_finds_no_violation_in_the_port():
-    """The reference package's static lockset checker (R001-R004) over
-    the port's hub, scheduler and kvcache: the port keeps the threading
-    contract its hub declares."""
+    """The port's static lockset checker (R001-R004,
+    ``repro_torch.analysis.races``) over the port's hub, scheduler and
+    kvcache: the port keeps the threading contract its hub declares."""
     import pathlib
-    from repro.analysis.races import analyze_unit
+    from repro_torch.analysis.races import DEFAULT_UNIT, analyze_unit
     root = pathlib.Path(__file__).resolve().parents[1]
-    unit = {f"src/repro_torch/serve/{n}.py":
-            (root / "src" / "repro_torch" / "serve" / f"{n}.py").read_text()
-            for n in ("hub", "scheduler", "kvcache")}
+    unit = {rel: (root / rel).read_text() for rel in DEFAULT_UNIT}
+    assert sorted(unit) == [f"src/repro_torch/serve/{n}.py"
+                            for n in ("hub", "kvcache", "scheduler")]
     assert analyze_unit(unit) == []
 
 

@@ -11,6 +11,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

@@ -5,6 +5,7 @@ counters and telemetry, and the same transactional PagePoolExhausted."""
 import numpy as np
 import pytest
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro.serve import kvcache as jkv
 from repro_torch.serve import kvcache as tkv
 

@@ -9,6 +9,7 @@ import json
 
 import pytest
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro.configs import ALL_ARCHS as JALL_ARCHS
 from repro.configs import get_config as jget
 from repro_torch.launch import serve as launch_serve

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro.core import MatcherConfig, build_matcher, train_bank
 from repro.core.autoencoder import bank_scores
 from repro.data import load_benchmark

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro.configs import get_config
 from repro.core import ExpertRegistry, build_matcher, train_bank
 from repro.data import load_benchmark

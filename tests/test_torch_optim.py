@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro import optim as jopt
 from repro_torch import optim as topt
 from repro_torch.bridge import to_numpy, to_torch

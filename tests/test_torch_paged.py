@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro.configs import get_config
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref

@@ -36,6 +36,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 import repro.sharding.context as jctx
 import repro.sharding.rules as jrules
 from repro.configs import get_config

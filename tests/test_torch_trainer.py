@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
 from repro.core import autoencoder as jae
 from repro.core import build_matcher as jbuild_matcher
 from repro.core import mlp_baseline as jmlp
