@@ -7,7 +7,8 @@ at capture, and never on replay — silently wrong spans, as a tracer call
 baked into a jit trace is in the reference. These rules keep the
 observability layer honest, statically:
 
-O001  a tracer call (``span`` / ``event`` / ``begin_device`` / ...) or a
+O001  a tracer call (``span`` / ``event`` / ``begin_device`` /
+      ``device_range`` / ``collect`` / ...) or a
       metric update (``inc`` / ``observe`` / ``set`` on a ``Counter`` /
       ``Histogram`` / ``Gauge``) inside a captured body (``lint``'s
       reach set from ``DecodeGraph._body`` / ``VerifyGraph._body``).
@@ -42,7 +43,8 @@ from .lint import (_Parents, _call_name, _dotted, _in_package, _last_attr,
 #: "a tracing call" for O001.
 _TRACER_METHODS = {"span", "enqueue_span", "event", "begin_device",
                    "end_device", "next_id", "bind_uid", "trace_of",
-                   "release_uid", "now"}
+                   "release_uid", "now", "device_range", "collect",
+                   "anchor", "first_token", "first_token_s"}
 #: metric updates, on a receiver whose name says it is a metric
 _METRIC_METHODS = {"inc", "observe", "set"}
 _METRIC_HINTS = ("counter", "histogram", "gauge", "metric", "hist")

@@ -64,7 +64,7 @@ import numpy as np
 import torch
 
 from ..device import on_device, resolve_device
-from ..obs.trace import NULL_TRACER
+from ..obs.trace import NULL_RANGE, NULL_TRACER
 from ..sharding import leading_sharding
 from ..tree import leaves, tree_map
 from .draft import DraftModel, build_draft
@@ -331,12 +331,16 @@ class _Wave:
     host_buf: Optional[np.ndarray] = None    # (E, Bb, 1 + steps) int32
     host_fill: Optional[np.ndarray] = None   # (E, Bb) tokens in host_buf
     spec_seeded: bool = False                # host_buf column 0 written
-    # tracing (inert under NULL_TRACER): device spans begun at enqueue,
-    # ended only inside _materialize / _materialize_spec, so tracing never
-    # adds a host block
+    # tracing (inert under NULL_TRACER): the prefill span begun at
+    # enqueue, ended only inside _materialize / _materialize_spec, so
+    # tracing never adds a host block; the device range that made the
+    # first tokens; the padded prompt length and the decode steps taken
+    # (a step's live slots and index in its ``decode.replay`` range)
     wave_id: int = 0
     sp_prefill: Any = None
-    sp_decode: Any = None
+    first_range: Any = None
+    Sb: int = 0
+    ticks: int = 0
 
 
 def _stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -440,6 +444,7 @@ class EngineCore:
         self.kv_layout = kv_layout
         self.stats = EngineStats(self)
         self.tracer = NULL_TRACER
+        self.trace_engine: Any = None        # the engine's label in ranges
         self._active: List[_Wave] = []
         self._finished: List[Tuple[int, Any, np.ndarray]] = []
         self._prefill_shapes: set = set()    # (Bb, Sb) run so far
@@ -542,9 +547,25 @@ class EngineCore:
         elif draft is not None:
             raise ValueError("draft requires speculate_k > 0")
 
-    def bind_tracer(self, tracer) -> None:
-        """Install a lifecycle tracer (None restores NULL_TRACER)."""
+    def bind_tracer(self, tracer, engine: Any = None) -> None:
+        """Install a lifecycle tracer (None restores NULL_TRACER);
+        ``engine`` labels this core's device ranges. An enabled tracer
+        anchors each CUDA position's clock here (one sync, before any
+        traffic)."""
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.trace_engine = engine
+        for dev in self.devices:
+            self.tracer.anchor(dev)
+
+    def _prefill_range(self, wave: int, **args: Any):
+        """The ``prefill.dispatch`` device range of one prefill or chunk
+        dispatch (position 0's stream on a mesh)."""
+        if not self.tracer.enabled:
+            return NULL_RANGE
+        return self.tracer.device_range("prefill.dispatch",
+                                        device=self.device,
+                                        engine=self.trace_engine,
+                                        wave=wave, **args)
 
     def executable_bounds(self) -> Dict[str, int]:
         """Steady-state bound on the distinct shape keys per family (the
@@ -592,7 +613,9 @@ class EngineCore:
         every copy is issued without blocking into one pinned buffer, then
         the host waits once (the caller counts one host block)."""
         if self.device.type == "cpu":
-            return torch.cat(list(parts)).numpy()
+            # synchronous: the copy is the wait
+            with self.tracer.span("engine.fetch"):
+                return torch.cat(list(parts)).numpy()
         host = torch.empty((self.n_experts,) + tuple(parts[0].shape[1:]),
                            dtype=parts[0].dtype, pin_memory=True)
         done = []
@@ -601,8 +624,9 @@ class EngineCore:
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(x.device))
             done.append(ev)
-        for ev in done:
-            ev.synchronize()
+        with self.tracer.span("engine.fetch"):
+            for ev in done:
+                ev.synchronize()
         return host.numpy()
 
     def step_graphs(self) -> List[Tuple[str, Any, Any]]:
@@ -890,6 +914,7 @@ class EngineCore:
                                        default=1))
         if rows_max == 0:
             return False
+        wave_id = self.tracer.next_id() if self.tracer.enabled else 0
         groups = {l: g for l, g in groups.items() if g[0]}
         Bb = bucket_for(rows_max, self.batch_buckets)
         Sb = bucket_for(len_max, self.len_buckets)
@@ -913,9 +938,12 @@ class EngineCore:
             # may raise PagePoolExhausted with nothing changed — the
             # scheduler requeues the rows as backpressure; the device span
             # below opens only after admission succeeds
-            w = self._admit_paged(toks, uids, per_row, done, Bb, Sb)
+            w = self._admit_paged(toks, uids, per_row, done, Bb, Sb,
+                                  wave_id)
         else:
-            logits, caches = self._prefill(toks)
+            with self._prefill_range(wave_id, Bb=Bb, Sb=Sb, rows=n_rows,
+                                     tokens=n_rows * Sb) as rng:
+                logits, caches = self._prefill(toks)
             self.stats.prefill_calls += 1
             self.stats.prefill_rows_computed += n_rows
             self.stats.prefill_tokens_computed += n_rows * Sb
@@ -941,12 +969,15 @@ class EngineCore:
                           cache=caches, tok=tok,
                           emitted=[[t[..., 0] for t in tok]],
                           steps_left=steps)
+            w.first_range = rng
+        w.Sb = Sb
         self.stats.rows_served += n_rows
         self.stats.rows_padded += E * Bb - n_rows
         self.stats.prefill_tokens_submitted += n_submitted
         if self.tracer.enabled:
-            w.wave_id = self.tracer.next_id()
+            w.wave_id = wave_id
             flat = [u for us in uids.values() for u in us]
+            self.tracer.first_token(flat, w.first_range)
             w.sp_prefill = self.tracer.begin_device(
                 "wave.prefill", wave=w.wave_id, Bb=Bb, Sb=Sb,
                 rows=n_rows, spec=w.spec, chunks=len(w.pending_chunks),
@@ -977,7 +1008,7 @@ class EngineCore:
         return pages
 
     def _admit_paged(self, toks: np.ndarray, uids, per_row, done,
-                     Bb: int, Sb: int) -> _Wave:
+                     Bb: int, Sb: int, wave_id: int = 0) -> _Wave:
         """Plan page tables for one wave, sharing prefixes, then prefill
         only the rows no cached or duplicated prefix covers.
 
@@ -1147,7 +1178,7 @@ class EngineCore:
             per_local.setdefault(local, []).append(i)
         n_computed = len(computed)
         use_chunks = chunked and n_computed > 0
-        mask = vals = None
+        mask = vals = rng = None
         if cached_tok:
             mask = np.zeros((E, Bb), bool)
             vals = np.zeros((E, Bb), np.int32)
@@ -1216,7 +1247,10 @@ class EngineCore:
                         toks_c[local, c] = toks[local, i]
                         stbl[local, c] = scatter[(local, i)]
                         slot_of[(local, i)] = c
-                logits = self._paged_prefill(toks_c, stbl)
+                with self._prefill_range(wave_id, Bb=Bbc, Sb=Sb,
+                                         rows=n_computed,
+                                         tokens=n_computed * Sb) as rng:
+                    logits = self._paged_prefill(toks_c, stbl)
                 self.stats.prefill_calls += 1
                 src = np.zeros((E, Bb), np.int32)
                 for local, row_uids in uids.items():
@@ -1251,11 +1285,11 @@ class EngineCore:
                          for q in pos_dev],
                 row_t=[t[:, None].expand(n, Bb).clone() for t in t_dev],
                 cache=None, table=table_dev, pages_held=pages_held,
-                register=register)
+                register=register, first_range=rng)
         w = _Wave(uids=uids, per_row_new=per_row, done=done, cache=None,
                   tok=None, emitted=[], steps_left=steps, table=table_dev,
                   pos=pos_dev, t=t_dev, pages_held=pages_held,
-                  register=register)
+                  register=register, first_range=rng)
         if use_chunks:
             w.pending_chunks, w.finalize = pending, fin
         else:
@@ -1296,17 +1330,23 @@ class EngineCore:
         tokens dispatched (real rows x chunk_len, the budget currency)."""
         d = w.pending_chunks.pop(0)
         k = d["k"]
-        if k == 0:
-            logits = self._paged_prefill(d["toks"], d["stbl"])
-        else:
-            logits = self._paged_suffix(k, d["toks"], d["ptbl"], d["stbl"])
-        self.stats.prefill_calls += 1
         spent = d["rows"] * self.chunk_len
+        with self._prefill_range(w.wave_id, Bb=d["toks"].shape[1], k=k,
+                                 rows=d["rows"], tokens=spent) as rng:
+            if k == 0:
+                logits = self._paged_prefill(d["toks"], d["stbl"])
+            else:
+                logits = self._paged_suffix(k, d["toks"], d["ptbl"],
+                                            d["stbl"])
+        self.stats.prefill_calls += 1
         self.stats.prefill_tokens_computed += spent
         self.tracer.event("wave.chunk", wave=w.wave_id, chunk=k,
                           tokens=spent, remaining=len(w.pending_chunks))
         if not w.pending_chunks:
             w._tok_c = logits
+            if self.tracer.enabled:
+                self.tracer.first_token(
+                    [u for us in w.uids.values() for u in us], rng)
             self._finalize_wave(w)
         return spent
 
@@ -1363,10 +1403,6 @@ class EngineCore:
             if w.tok is None:
                 continue
             if w.steps_left > 0:
-                if w.sp_decode is None and self.tracer.enabled:
-                    w.sp_decode = self.tracer.begin_device(
-                        "wave.verify" if w.spec else "wave.decode",
-                        wave=w.wave_id, Bb=w.tok[0].shape[1])
                 if w.spec:
                     self._spec_tick(w)
                     advanced += 1
@@ -1377,6 +1413,7 @@ class EngineCore:
                 # harvest, and the graph's static output is overwritten
                 w.tok = self._decode_step(w)
                 w.emitted.append([t[..., 0] for t in w.tok])
+                w.ticks += 1
                 w.steps_left -= 1
                 self.stats.decode_steps += 1
                 advanced += 1
@@ -1393,6 +1430,7 @@ class EngineCore:
         far fewer. ``steps_left`` stays the plain tick count's upper
         bound; harvest zeroes it once every row has its tokens."""
         w.spec_pending.append(self._verify_step(w))
+        w.ticks += 1
         w.steps_left -= 1
         self.stats.decode_steps += 1
         self.stats.verify_steps += 1
@@ -1412,13 +1450,10 @@ class EngineCore:
         w.n_host = upto
         self.stats.host_blocks += 1
         # the copy above completed everything enqueued for this wave, so
-        # its open device spans close here (tracing rides this sync)
+        # its open prefill span closes here (tracing rides this sync)
         if w.sp_prefill is not None:
             self.tracer.end_device(w.sp_prefill, planes=upto)
             w.sp_prefill = None
-        if w.sp_decode is not None:
-            self.tracer.end_device(w.sp_decode, planes=upto)
-            w.sp_decode = None
 
     def _materialize_spec(self, w: _Wave) -> None:
         """Bring a speculative wave's pending verify planes (and the
@@ -1440,14 +1475,10 @@ class EngineCore:
                             for pp in zip(*planes)]) if planes else None
         self.stats.host_blocks += 1
         # the copy above completed everything enqueued for this wave, so
-        # its open device spans close here
+        # its open prefill span closes here
         if w.sp_prefill is not None:
             self.tracer.end_device(w.sp_prefill)
             w.sp_prefill = None
-        if w.sp_decode is not None:
-            self.tracer.end_device(w.sp_decode,
-                                   verifies=len(w.spec_pending))
-            w.sp_decode = None
         if seed:
             w.emitted[0] = host[:, :Bb]
             host = host[:, Bb:]
@@ -1596,17 +1627,25 @@ class DispatchExecutor:
     defer = False
 
     def run_step(self, sched) -> None:
+        # each phase is a host span (``sched.*``: the time the host spends
+        # there, enqueues and waits alike)
+        tr = sched.tracer
         # the expert hub's round first: slot installs are enqueued ahead
         # of this step's prefills and decode ticks (a no-op without a hub)
-        sched._service_hub()
-        sched._admit_batches(defer=self.defer)
+        with tr.enqueue_span("sched.hub"):
+            sched._service_hub()
+        with tr.enqueue_span("sched.admit"):
+            sched._admit_batches(defer=self.defer)
         # pending chunks of partially prefilled waves go out here, bounded
         # per step by SchedulerConfig.prefill_tokens_per_step, so the
         # decode ticks below run every step while a long prompt prefills
         # (on the blocking path admission already drained its chunks)
-        sched._prefill_chunks()
-        sched._tick_engines(defer=self.defer)
-        sched._harvest_engines()
+        with tr.enqueue_span("sched.chunks"):
+            sched._prefill_chunks()
+        with tr.enqueue_span("sched.tick"):
+            sched._tick_engines(defer=self.defer)
+        with tr.enqueue_span("sched.harvest"):
+            sched._harvest_engines()
 
 
 class SerialExecutor(DispatchExecutor):

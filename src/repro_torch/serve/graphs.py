@@ -51,6 +51,13 @@ The outputs (greedy window, advance, accepted count, next token) are
 packed in one static plane and cloned out: they wait on the device until
 harvest.
 
+Each step is timed on the device by a ``decode.replay`` (or
+``verify.replay``) range of the engine's tracer, from the first copy in
+to the clone of the output, and each ring swap by a ``ring.swap`` range
+and a host span of that name: all outside the captured body, so a replay
+times the same work on every step. A bucket's eager and capture steps
+are marked (``eager``, ``captured``) for readers to leave out.
+
 The kernel wrappers count Python calls. A capture calls them without
 launching anything, a replay launches without calling them: the graph
 records each wrapper's count during capture, takes it back, and adds it
@@ -67,7 +74,8 @@ import torch
 
 from ..device import on_device
 from ..kernels import ops
-from ..tree import tree_map
+from ..obs.trace import NULL_RANGE
+from ..tree import leaves, tree_map
 
 
 def _i32(shape, dev) -> torch.Tensor:
@@ -98,6 +106,31 @@ class _StepGraph:
 
     def _body(self) -> None:
         raise NotImplementedError
+
+    def _range(self, name: str, w):
+        """The device range of one step of wave ``w``: its engine,
+        position, bucket, real rows, rows still short of their
+        ``max_new``, live cache slots after the step and the wave's step
+        index ``j``; ``eager`` / ``captured`` where the step runs
+        eagerly before its capture, or captures. The null range when the
+        tracer is off."""
+        core = self.core
+        tr = core.tracer
+        if not tr.enabled:
+            return NULL_RANGE
+        j = w.ticks
+        news = [m for ms in w.per_row_new.values() for m in ms]
+        live = sum(not d for ds in w.done.values() for d in ds) if w.spec \
+            else sum(m > j + 1 for m in news)
+        args = dict(engine=core.trace_engine, position=self.p,
+                    wave=w.wave_id, Bb=self.Bb, rows=len(news),
+                    live_rows=live, slots=min(w.Sb + j + 1, core.max_len),
+                    j=j)
+        if self.capture and self.steps == 0:
+            args["eager"] = True
+        elif self.capture and self.graph is None:
+            args["captured"] = True
+        return tr.device_range(name, device=self.dev, **args)
 
     def _run(self) -> None:
         with on_device(self.dev):
@@ -152,13 +185,22 @@ class _StepGraph:
             self.state = w.cache[p]          # adopt: no copy
         else:
             r = self.resident
-            if r is not None:
-                if r.cache[p] is self.state:     # the adopted wave
-                    r.cache[p] = tree_map(torch.clone, self.state)
-                else:
-                    tree_map(lambda d, s: d.copy_(s), r.cache[p],
-                             self.state)
-            tree_map(lambda d, s: d.copy_(s), self.state, w.cache[p])
+            tr = self.core.tracer
+            args = {}
+            if tr.enabled:
+                size = sum(x.numel() * x.element_size()
+                           for x in leaves(self.state))
+                args = dict(bytes_out=size if r is not None else 0,
+                            bytes_in=size)
+            with tr.enqueue_span("ring.swap", **args), \
+                    tr.device_range("ring.swap", device=self.dev, **args):
+                if r is not None:
+                    if r.cache[p] is self.state:     # the adopted wave
+                        r.cache[p] = tree_map(torch.clone, self.state)
+                    else:
+                        tree_map(lambda d, s: d.copy_(s), r.cache[p],
+                                 self.state)
+                tree_map(lambda d, s: d.copy_(s), self.state, w.cache[p])
             if p == 0:                       # one swap a wave, not a graph
                 self.core.stats.decode_swaps += 1
         self.resident = w
@@ -189,18 +231,19 @@ class DecodeGraph(_StepGraph):
         own: the static output is overwritten by the next replay, and
         planes wait on the device until harvest."""
         p = self.p
-        if self.paged:
-            self.table.copy_(w.table[p])
-            self.pos.copy_(w.pos[p])
-            self.t.copy_(w.t[p])
-        else:
+        if not self.paged:
             self._make_resident(w)
-        self.tok.copy_(w.tok[p])
-        self._run()
-        if self.paged:
-            w.pos[p].copy_(self.pos)
-            w.t[p].copy_(self.t)
-        return self.out.clone()
+        with self._range("decode.replay", w):
+            if self.paged:
+                self.table.copy_(w.table[p])
+                self.pos.copy_(w.pos[p])
+                self.t.copy_(w.t[p])
+            self.tok.copy_(w.tok[p])
+            self._run()
+            if self.paged:
+                w.pos[p].copy_(self.pos)
+                w.t[p].copy_(self.t)
+            return self.out.clone()
 
     def _body(self) -> None:
         core = self.core
@@ -235,18 +278,19 @@ class VerifyGraph(_StepGraph):
         tensor of its own (the core takes the next feed token from
         it)."""
         p = self.p
-        if self.paged:
-            self.table.copy_(w.table[p])
-        else:
+        if not self.paged:
             self._make_resident(w)
-        self.pos.copy_(w.row_pos[p])
-        self.t.copy_(w.row_t[p])
-        self.cap.copy_(w.cap[p])
-        self.tok.copy_(w.tok[p][..., 0])
-        self._run()
-        w.row_pos[p].copy_(self.pos)
-        w.row_t[p].copy_(self.t)
-        return self.out.clone()
+        with self._range("verify.replay", w):
+            if self.paged:
+                self.table.copy_(w.table[p])
+            self.pos.copy_(w.row_pos[p])
+            self.t.copy_(w.row_t[p])
+            self.cap.copy_(w.cap[p])
+            self.tok.copy_(w.tok[p][..., 0])
+            self._run()
+            w.row_pos[p].copy_(self.pos)
+            w.row_t[p].copy_(self.t)
+            return self.out.clone()
 
     def _body(self) -> None:
         self.out.copy_(self.core._verify(

@@ -37,6 +37,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..core.matcher import ExpertMatcher
 from ..core.registry import ExpertRegistry
@@ -70,6 +71,13 @@ class Response:
     tokens: np.ndarray
     coarse_scores: Optional[np.ndarray] = None
     shard: int = -1                 # placement shard that served the row
+
+
+#: the CUDA caching allocator's counters whose per-step deltas a traced
+#: ``sched.step`` carries: cache flushes (and the syncs they hide) show
+#: as retries, all-stream syncs and device allocs / frees
+ALLOC_COUNTERS = ("num_alloc_retries", "num_sync_all_streams",
+                  "num_device_alloc", "num_device_free")
 
 
 @dataclasses.dataclass
@@ -228,6 +236,9 @@ class Scheduler:
         self._counters: Dict[str, Counter] = {
             f.name: Counter() for f in dataclasses.fields(SchedulerStats)}
         self._steps = 0
+        self._step_waves = self._step_rows = 0    # this step's, traced
+        self._alloc_dev: Optional[torch.device] = None
+        self._alloc_prev: Optional[Dict[str, int]] = None
         self._done: List[Response] = []
         self._meta: Dict[int, _Pending] = {}   # uid -> routing info
         # prompt-prefix cohort detection, keyed at the page granularity of
@@ -251,12 +262,29 @@ class Scheduler:
         """Install a lifecycle tracer here, on every engine core and on
         the hub (None restores the disabled NULL_TRACER)."""
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self._alloc_dev = self._alloc_prev = None
         for shard in self.shards:
             eng = self._shard_engine(shard)
             if eng is not None:
-                eng.core.bind_tracer(self.tracer)
+                eng.core.bind_tracer(self.tracer, engine=shard.sid)
+                if self._alloc_dev is None and eng.device.type == "cuda":
+                    self._alloc_dev = eng.device
         if self.hub is not None:
             self.hub.bind_tracer(self.tracer)
+        if self.tracer.enabled:
+            self._alloc_deltas()      # the first step's baseline
+
+    def _alloc_deltas(self) -> Dict[str, int]:
+        """The allocator counters' change since the last call (one
+        ``memory_stats`` read; nothing without a card or before a
+        baseline)."""
+        if self._alloc_dev is None:
+            return {}
+        st = torch.cuda.memory_stats(self._alloc_dev)
+        now = {k: int(st.get(k, 0)) for k in ALLOC_COUNTERS}
+        prev, self._alloc_prev = self._alloc_prev, now
+        return {} if prev is None else {k: now[k] - prev[k]
+                                        for k in ALLOC_COUNTERS}
 
     def _build_metrics(self) -> MetricsRegistry:
         """The snapshot tree: scheduler counters + queue and stall
@@ -386,10 +414,21 @@ class Scheduler:
 
     # -- one scheduling round -------------------------------------------
     def step(self) -> List[Response]:
-        self.executor.run_step(self)
-        self._harvest()
-        out, self._done = self._done, []
-        self._counters["responses"].inc(len(out))
+        """One round (``sched.step``, its phases children of it); the
+        tracer then folds the device ranges that have completed."""
+        tr = self.tracer
+        self._step_waves = self._step_rows = 0
+        with tr.enqueue_span("sched.step", step=self._steps) as sp:
+            self.executor.run_step(self)
+            with tr.enqueue_span("sched.emit"):
+                self._harvest()
+                out, self._done = self._done, []
+            self._counters["responses"].inc(len(out))
+            if tr.enabled:
+                sp.set(waves_ticked=self._step_waves,
+                       rows_admitted=self._step_rows, responses=len(out),
+                       **self._alloc_deltas())
+                tr.collect()
         self._steps += 1
         if (self.config.check_every
                 and self._steps % self.config.check_every == 0):
@@ -547,6 +586,7 @@ class Scheduler:
                 p.stalled_s += t - p.stall_since
                 p.stall_since = None
             p.t_admit = t
+        self._step_rows += len(rows)
         if rows and self.tracer.enabled:
             self.tracer.event("request.admit", shard=sid, bucket=sb,
                               uids=[p.req.uid for p in rows],
@@ -565,11 +605,14 @@ class Scheduler:
         self._h_queue.observe(queue_s * 1e3)
         self._h_stalled.observe(p.stalled_s * 1e3)
         if self.tracer.enabled:
+            first = self.tracer.first_token_s(p.req.uid)
             self.tracer.event(
                 "request.finish", uid=p.req.uid, trace=p.trace,
                 expert=p.expert, queue_ms=queue_s * 1e3,
                 stalled_ms=p.stalled_s * 1e3,
-                total_ms=(t - p.t_submit) * 1e3)
+                total_ms=(t - p.t_submit) * 1e3,
+                first_token_ms=(None if first is None
+                                else (first - p.t_submit) * 1e3))
             self.tracer.release_uid(p.req.uid)
 
     def _service_hub(self) -> None:
@@ -720,7 +763,7 @@ class Scheduler:
         for shard in self.shards:
             eng = self._shard_engine(shard)
             if eng is not None and eng.n_active:
-                eng.tick(defer=defer)
+                self._step_waves += eng.tick(defer=defer)
                 self._counters["ticks"].inc()
 
     def _harvest_engines(self) -> None:
