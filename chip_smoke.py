@@ -134,9 +134,10 @@ Phases, each printing one JSON line:
    route: at least 6 per RWKV expert, RWKV prompt buckets both below the
    32-token chunk, a scan prefill, and at or above it, a chunked one),
    serial and overlapped, through graphs and eagerly. Every RWKV decode
-   layer goes through ``wkv_step`` (32 launches per RWKV decode step) and
-   every llama one through ``decode_attention``; every run's tokens must
-   equal the first's, ``host_blocks`` 192 / 12.
+   layer goes through ``wkv_step`` (32 launches per RWKV replay: an RWKV
+   engine's waves share replays through row slots, fewer than its decode
+   steps) and every llama one through ``decode_attention``; every run's
+   tokens must equal the first's, ``host_blocks`` 192 / 12.
 10. breakdown_rwkv — one RWKV decode step at that phase's largest RWKV
    decode bucket, timed as in phase 5, with ``wkv_step``'s share, and the
    engine's own tick replayed and eager.
@@ -273,7 +274,9 @@ Phases, each printing one JSON line:
    pass (H001-H004) on full-width ``smollm_135m`` engines (bf16, every
    layer): a ring and a chunked paged ``ExpertHub`` of 4 slots over
    ``ExpertMesh((cuda:0,) * 2)`` and a speculating engine on the
-   wrap-risk grid, every decode and verify body captured under a
+   wrap-risk grid, and a full-width ``rwkv6_7b`` engine whose rows share
+   replays (row slots, buckets 1 and 2: installs, packing and group
+   swaps), every decode and verify body captured under a
    recording dispatch mode and ``torch.cuda.set_sync_debug_mode
    ("error")``; its kernels pass (K001-K004, capture, not execution);
    the ``H100`` table the planners read held against
@@ -1160,8 +1163,8 @@ HOST_BLOCKS = {"serve": {"serial": 176, "overlapped": 11},
                "serve_rwkv": {"serial": 192, "overlapped": 12},
                "serve_zamba": {"serial": 192, "overlapped": 12}}
 #: engine counters a serve run reports as deltas
-DELTAS = ("host_blocks", "decode_steps", "decode_swaps", "decode_captured",
-          "decode_capture_ms")
+DELTAS = ("host_blocks", "decode_steps", "decode_replays", "decode_swaps",
+          "decode_captured", "decode_capture_ms")
 
 
 def warm_graphs(server_cls, matcher, registry, reqs, dev, **kw):
@@ -2804,12 +2807,15 @@ def serve_rwkv_phase(np, torch, dev, ops, shapes):
                  for e, b in zip(fleet, before)]
         r_steps = sum(s_ for s_, r in zip(steps, is_rwkv) if r)
         l_steps = sum(steps) - r_steps
+        r_replays = sum(e.stats.decode_replays - b["decode_replays"]
+                        for e, b, r in zip(fleet, before, is_rwkv) if r)
         check_blocks(label, delta, HOST_BLOCKS["serve_rwkv"][executor])
-        if launches["wkv_step"] != rcfg.n_layers * r_steps:
+        if launches["wkv_step"] != rcfg.n_layers * r_replays \
+                or not 0 < r_replays <= r_steps:
             raise AssertionError(
                 f"{label}: wkv_step launched "
-                f"{launches['wkv_step']} times for {r_steps} RWKV decode "
-                f"steps of {rcfg.n_layers} layers")
+                f"{launches['wkv_step']} times for {r_replays} RWKV replays "
+                f"({r_steps} decode steps) of {rcfg.n_layers} layers")
         if launches["decode_attention"] != lmodel.cfg.n_layers * l_steps:
             raise AssertionError(
                 f"{label}: decode_attention launched "
@@ -2834,7 +2840,8 @@ def serve_rwkv_phase(np, torch, dev, ops, shapes):
         runs[capture][executor] = {
             "seconds": dt, "req_per_s": len(resps) / dt,
             "generated_tok_per_s": n_tok / dt, "tokens": n_tok,
-            "decode_steps_rwkv": r_steps, "decode_steps_llama": l_steps,
+            "decode_steps_rwkv": r_steps, "decode_replays_rwkv": r_replays,
+            "decode_steps_llama": l_steps,
             **delta, "launches": launches,
             "route_chunks": chunks, "routed": routed,
             "prefill_buckets": buckets,
@@ -5573,7 +5580,8 @@ def contracts_phase(np, torch, dev, smi):
             "warnings": sum(v.severity != "error" for v in active),
             "engines": "smollm_135m full width (bf16, every layer): ring "
                        "and chunked paged 4-slot hubs over 2 mesh "
-                       "positions, a spec k 2 engine",
+                       "positions, a spec k 2 engine; rwkv6_7b full width "
+                       "with row slots",
             "sm_count": card_vals["sm_count"],
             "smem_optin": card_vals["smem_optin"],
             "expert_score_clusters": clusters,

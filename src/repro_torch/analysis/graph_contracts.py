@@ -9,8 +9,9 @@ leaves a captured graph reading the old buffer, a host sync inside a
 decode body only shows when the card captures it, a misplaced slot just
 runs slower. This pass builds the reference's engine set — a ring hub
 and a chunked paged hub, each a bank over a 2-position ``ExpertMesh``,
-and a speculating engine on a wrap-risk admission grid — drives each
-through its whole ladder, and checks:
+and a speculating engine on a wrap-risk admission grid — and a
+constant-state engine whose rows share replays (``RowSlots``), drives
+each through its whole ladder, and checks:
 
   H001  written in place: every cache leaf keeps its
         ``untyped_storage().data_ptr()`` across prefill, decode, verify,
@@ -31,12 +32,15 @@ through its whole ladder, and checks:
         decode and verify graphs), installs capture nothing, every graph
         stepped at least twice (a graph captures at its second step) and
         on the card holds its capture; the spec grid fills both the
-        verify ladder and its gate-blocked decode fallback.
+        verify ladder and its gate-blocked decode fallback; row-slot
+        installs, packing and group swaps make no graph and keep the
+        slab's storage.
 
 Runs on the card unless ``device="cpu"``; without a card it raises (no
 fallback to the CPU). The engines serve ``smollm_135m``, the main
-path's serving config: reduced for the CPU gate, at full width and depth
-for ``chip_smoke.py``'s ``contracts`` phase (``reduced=False``).
+path's serving config (the row-slot engine ``rwkv6_7b``): reduced for
+the CPU gate, at full width and depth for ``chip_smoke.py``'s
+``contracts`` phase (``reduced=False``).
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from typing import Any, Dict, Iterator, List, Tuple
 from . import Violation
 
 ARCH = "smollm_135m"
+SLOT_ARCH = "rwkv6_7b"
 CORE = "src/repro_torch/serve/core.py"
 GRAPHS = "src/repro_torch/serve/graphs.py"
 HUB = "src/repro_torch/serve/hub.py"
@@ -286,11 +291,11 @@ def _impure(log: _OpLog, kinds: Tuple[str, ...] = ("decode", "verify")
 # ---------------------------------------------------------------------------
 
 
-def _model(reduced: bool):
+def _model(reduced: bool, arch: str = ARCH):
     from ..configs import get_config
     from ..models import build_model
-    cfg = get_config(ARCH)
-    cfg = cfg.reduced(name=f"contracts-{ARCH}") if reduced else cfg
+    cfg = get_config(arch)
+    cfg = cfg.reduced(name=f"contracts-{arch}") if reduced else cfg
     return build_model(cfg)
 
 
@@ -410,6 +415,57 @@ def _spec_checks(model, dev) -> Tuple[List[Violation], List[str]]:
     return out, moved
 
 
+def _slot_checks(model, dev) -> Tuple[List[Violation], List[str]]:
+    """A constant-state engine (row slots) through its whole ladder, one
+    wave at a time, then three waves of two rows at once over groups of
+    two slots: installs, packing and group swaps run outside the
+    captured body, make no graph and keep the slab's storage."""
+    import numpy as np
+    import torch
+
+    from ..serve import ExpertEngine
+
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    eng = ExpertEngine(model, params, max_len=16, min_len_bucket=8,
+                       batch_buckets=(1, 2), device=dev)
+    core = eng.core
+    if core.row_slots is None:
+        return [Violation("H004", CORE, 0, "slots.engaged",
+                          f"a {model.cfg.family} ring engine (constant-size "
+                          "state) holds no row slots")], []
+    # each (length, batch) once, three tokens a row: every graph steps
+    # twice a wave
+    for Sb in core.len_buckets:
+        for Bb in core.batch_buckets:
+            eng.generate(np.full((Bb, Sb), 3, np.int32), 3)
+    out = _bounds(core, "slots")
+    graphs = core.stats.decode_compiles
+    slab = [_ptrs(s) for s in core.row_slots.slab]
+    for i in range(3):
+        eng.admit([("slots", i, r) for r in range(2)],
+                  [np.full(4 + 4 * i, 5 + i, np.int32)] * 2, [4, 6],
+                  defer=True)
+    while eng.n_active:
+        eng.tick(defer=True)
+        eng.harvest()
+    eng.poll()
+    st = core.stats
+    if st.decode_compiles != graphs:
+        out.append(Violation(
+            "H004", GRAPHS, 0, "slots.merged",
+            f"{st.decode_compiles - graphs} decode graphs made by merged "
+            "waves after the warm-up"))
+    if not st.decode_swaps:
+        out.append(Violation(
+            "H004", GRAPHS, 0, "slots.swaps",
+            "six rows over groups of two swapped no group: the swap path "
+            "went unchecked"))
+    moved = [] if [_ptrs(s) for s in core.row_slots.slab] == slab else \
+        ["slots: the row slab moved to new storage"]
+    return out, moved
+
+
 def run(device=None, *, reduced: bool = True) -> List[Violation]:
     """H001-H004 over the engine set on ``device`` (the card unless
     ``"cpu"``; raises without one)."""
@@ -430,6 +486,9 @@ def run(device=None, *, reduced: bool = True) -> List[Violation]:
             out += found
             moved += m
         found, m = _spec_checks(model, dev)
+        out += found
+        moved += m
+        found, m = _slot_checks(_model(reduced, SLOT_ARCH), dev)
         out += found
         moved += m
     return out + step_findings(log, graph_moves + moved)

@@ -55,7 +55,9 @@ name                   ph / cat     emitted by
 ``kv.requeue``         i host       scheduler, ``PagePoolExhausted``
                                     rollback
 ``sched.step``         X enqueue    ``Scheduler.step``: args ``step``,
-                                    ``waves_ticked``, ``rows_admitted``,
+                                    ``waves_ticked``, ``replays`` (the
+                                    engines' step graph replays),
+                                    ``rows_admitted``,
                                     ``responses``; on CUDA the step's
                                     deltas of the allocator's
                                     ``num_alloc_retries``,
@@ -71,7 +73,11 @@ name                   ph / cat     emitted by
 ``engine.fetch``       X host       ``EngineCore._fetch``: the host's
                                     wait on the device (CPU: the copy)
 ``ring.swap``          X enqueue    ``_StepGraph._make_resident``:
-                                    host time of a ring swap's copies
+                                    host time of a ring swap's copies;
+                                    ``RowSlots``: of a group swap, of a
+                                    wave's slot installs
+                                    (``rows_installed``) or of a
+                                    packing's moves (``rows_moved``)
 ``ring.swap``          X device     the same copies on the device: args
                                     ``bytes_out``, ``bytes_in``
 ``prefill.dispatch``   X device     engine, each prefill / chunk: args
@@ -79,11 +85,15 @@ name                   ph / cat     emitted by
                                     ``k``, ``rows``, ``tokens``
 ``decode.replay``      X device     ``DecodeGraph.step`` (copy-in to the
                                     clone): args ``engine``,
-                                    ``position``, ``wave``, ``Bb``,
-                                    ``rows``, ``live_rows``, ``slots``,
-                                    ``j``; ``eager`` / ``captured`` on a
-                                    bucket's first two steps under
-                                    capture
+                                    ``position``, ``wave``, ``waves``,
+                                    ``Bb``, ``rows``, ``live_rows``,
+                                    ``slots``, ``j``; a row group's
+                                    (``step_group``) ``engine``,
+                                    ``position``, ``Bb``, ``waves`` (the
+                                    waves it carries), ``rows`` (its
+                                    decoding rows); ``eager`` /
+                                    ``captured`` on a bucket's first two
+                                    steps under capture
 ``verify.replay``      X device     ``VerifyGraph.step``, as above
 ``wave.prefill``       X device     engine, admit enqueue → harvest sync
 ``wave.chunk``         i host       engine, one chunked-prefill dispatch

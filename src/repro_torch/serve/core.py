@@ -26,7 +26,10 @@ expert engine, plus the dispatch executors.
     (``serve/graphs.py``): on CUDA a captured graph, replayed for every
     wave at that bucket, as the reference compiles one executable per
     decode bucket; eager on the CPU or with ``capture_decode=False``.
-    Prefill stays eager.
+    Prefill stays eager. A ring core whose model keeps a constant-size
+    decode state (``cache_capacity`` 1: RWKV6) steps rows, not waves:
+    each row decodes in a slot of a row group (``graphs.RowSlots``) and
+    one replay steps a group's rows of every wave.
   * speculative decoding (``speculate_k`` > 0, dense families): a draft
     (``serve/draft.py``) proposes k tokens a row, the target scores the
     (Bb, k+1) window in one pass (``model.verify``), the matched greedy
@@ -68,7 +71,7 @@ from ..obs.trace import NULL_RANGE, NULL_TRACER
 from ..sharding import leading_sharding
 from ..tree import leaves, tree_map
 from .draft import DraftModel, build_draft
-from .graphs import DecodeGraph, VerifyGraph
+from .graphs import Columns, DecodeGraph, RowSlots, VerifyGraph
 from .kvcache import PagePool, PagePoolExhausted, PrefixCache, hash_chain
 
 
@@ -121,7 +124,8 @@ class EngineStats:
     chunk index)`` for suffix prefill — the quantity the reference's
     executable counts bound. ``decode_swaps`` counts ring waves' states
     copied into a bucket's static buffers (the resident wave's copied
-    out first, where it still runs), decode and verify steps alike.
+    out first, where it still runs), decode and verify steps alike, or a
+    row group's into the slab.
     ``verify_compiles`` / ``verify_captured`` / ``verify_capture_ms`` are
     the same for the ``VerifyGraph`` objects of a speculative engine, one
     per (position, batch bucket, k). Speculation: ``verify_steps``
@@ -129,6 +133,10 @@ class EngineStats:
     verified active row, ``tokens_accepted`` the matched drafts,
     ``spec_fallback_waves`` waves that wanted to speculate but failed
     the no-wrap / chunk gate.
+    ``decode_replays`` counts the step graphs' replays (decode and
+    verify alike): one a decode step, except in a core whose rows share
+    replays (``RowSlots``), where a step of many waves replays once a
+    row group; ``rows_installed`` counts rows copied into such slots.
     ``host_blocks`` counts host-blocking device-to-host copies. Prefill
     accounting: ``prefill_tokens_submitted`` counts every prompt token
     clients sent, ``prefill_tokens_computed`` the tokens that went
@@ -152,6 +160,8 @@ class EngineStats:
         self.prefix_pages_shared = 0    # page refs shared instead of built
         self.pages_copied = 0           # copy-on-write page copies
         self.decode_swaps = 0           # ring residency swaps
+        self.decode_replays = 0         # step graph replays
+        self.rows_installed = 0         # rows copied into row slots
         self.verify_steps = 0
         self.tokens_drafted = 0
         self.tokens_accepted = 0
@@ -229,6 +239,8 @@ class EngineStats:
             "prefix_pages_shared": self.prefix_pages_shared,
             "pages_copied": self.pages_copied,
             "decode_swaps": self.decode_swaps,
+            "decode_replays": self.decode_replays,
+            "rows_installed": self.rows_installed,
             "verify_steps": self.verify_steps,
             "tokens_drafted": self.tokens_drafted,
             "tokens_accepted": self.tokens_accepted,
@@ -291,7 +303,8 @@ class _Wave:
     #   each, the model's tree with every leaf stacked on a leading axis
     #   of the position's members (dense: {k, v (E/n, L, Bb, C, KV, dh),
     #   pos (E/n, C), t (E/n,)}); stale while the wave is resident in its
-    #   bucket's DecodeGraphs, whose static state is then its own
+    #   bucket's DecodeGraphs, whose static state is then its own; None
+    #   once its rows are in row slots
     tok: Optional[List[torch.Tensor]]   # (E, Bb, 1) last sampled token;
     #   None while prefill chunks are still pending (decode is gated)
     emitted: List[Any]                  # (E, Bb) planes, device or host
@@ -341,6 +354,10 @@ class _Wave:
     first_range: Any = None
     Sb: int = 0
     ticks: int = 0
+    # row slots (a core with ``RowSlots``): (local expert, row) -> (group,
+    # slot) of each row still decoding
+    slots: Dict[Tuple[int, int], Any] = \
+        dataclasses.field(default_factory=dict)
 
 
 def _stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -546,6 +563,11 @@ class EngineCore:
                                 for sl, dev in self._slices()]
         elif draft is not None:
             raise ValueError("draft requires speculate_k > 0")
+        # a model whose decode state has a constant size reads no position
+        # in decode: its rows share replays through row slots
+        self.row_slots: Optional[RowSlots] = RowSlots(self) \
+            if kv_layout == "ring" and not self.speculate_k \
+            and model.cache_capacity(max_len) == 1 else None
 
     def bind_tracer(self, tracer, engine: Any = None) -> None:
         """Install a lifecycle tracer (None restores NULL_TRACER);
@@ -712,16 +734,20 @@ class EngineCore:
                            stream=stream))
         return out
 
-    def _decode_step(self, w: "_Wave") -> List[torch.Tensor]:
-        """One decode step of wave ``w`` through its bucket's
-        ``DecodeGraph``s (made at the bucket's first step), every
-        position's enqueued before anything blocks. Returns the new (E,
-        Bb, 1) int32 token plane, tensors of its own."""
-        Bb = w.tok[0].shape[1]
+    def _decode_graphs(self, Bb: int) -> List[DecodeGraph]:
+        """Bucket ``Bb``'s ``DecodeGraph``s, made at its first step."""
         gs = self._graphs.get(Bb)
         if gs is None:
             gs = self._graphs[Bb] = self._new_graphs(DecodeGraph, Bb)
-        return [g.step(w) for g in gs]
+        return gs
+
+    def _decode_step(self, w: "_Wave") -> List[torch.Tensor]:
+        """One decode step of wave ``w`` through its bucket's
+        ``DecodeGraph``s, every position's enqueued before anything
+        blocks. Returns the new (E, Bb, 1) int32 token plane, tensors of
+        its own."""
+        self.stats.decode_replays += 1
+        return [g.step(w) for g in self._decode_graphs(w.tok[0].shape[1])]
 
     def _verify_step(self, w: "_Wave") -> List[torch.Tensor]:
         """One verify of spec wave ``w`` through its (bucket, k)
@@ -734,6 +760,7 @@ class EngineCore:
             gs = self._verify_graphs[key] = self._new_graphs(VerifyGraph,
                                                              *key)
         outs = [g.step(w) for g in gs]
+        self.stats.decode_replays += 1
         w.tok = [o[..., self.speculate_k + 3:] for o in outs]
         return outs
 
@@ -969,6 +996,9 @@ class EngineCore:
                           cache=caches, tok=tok,
                           emitted=[[t[..., 0] for t in tok]],
                           steps_left=steps)
+                if self.row_slots is not None:
+                    self.row_slots.install(w, caches, tok)
+                    w.cache = None
             w.first_range = rng
         w.Sb = Sb
         self.stats.rows_served += n_rows
@@ -1395,33 +1425,38 @@ class EngineCore:
         harvests before returning. ``defer=True`` only enqueues: the token
         feeds the next decode without leaving the device, and the host
         blocks once per wave at ``harvest()``.
+
+        In a core with row slots every wave's step comes from one replay
+        a row group, and its plane is its rows' ``Columns`` of the
+        replays' outputs; a wave still counts one decode step a step.
         """
-        advanced = 0
-        for w in list(self._active):
-            # a wave with prefill chunks still pending has no sampled
-            # token yet: decode takes it once its last chunk lands
-            if w.tok is None:
+        # a wave with prefill chunks still pending has no sampled token
+        # yet: decode takes it once its last chunk lands
+        waves = [w for w in self._active
+                 if w.tok is not None and w.steps_left > 0]
+        planes: List[Any] = [None] * len(waves)
+        if self.row_slots is not None and waves:
+            planes = self.row_slots.step(waves, self._decode_graphs)
+        for w, plane in zip(waves, planes):
+            if w.spec:
+                self._spec_tick(w)
+                if not defer:
+                    self._materialize_spec(w)
                 continue
-            if w.steps_left > 0:
-                if w.spec:
-                    self._spec_tick(w)
-                    advanced += 1
-                    if not defer:
-                        self._materialize_spec(w)
-                    continue
+            if plane is None:
                 # a plane of its own: planes wait on the device until
                 # harvest, and the graph's static output is overwritten
                 w.tok = self._decode_step(w)
-                w.emitted.append([t[..., 0] for t in w.tok])
-                w.ticks += 1
-                w.steps_left -= 1
-                self.stats.decode_steps += 1
-                advanced += 1
-                if not defer:
-                    self._materialize(w, len(w.emitted))
+                plane = [t[..., 0] for t in w.tok]
+            w.emitted.append(plane)
+            w.ticks += 1
+            w.steps_left -= 1
+            self.stats.decode_steps += 1
+            if not defer:
+                self._materialize(w, len(w.emitted))
         if not defer:
             self.harvest()
-        return advanced
+        return len(waves)
 
     def _spec_tick(self, w: _Wave) -> None:
         """One verify of a speculative wave: every active row advances by
@@ -1437,16 +1472,36 @@ class EngineCore:
 
     # -- harvest ---------------------------------------------------------
     def _materialize(self, w: _Wave, upto: int) -> None:
-        """Bring ``emitted[:upto]`` to the host in one blocking copy."""
+        """Bring ``emitted[:upto]`` to the host in one blocking copy: every
+        plain plane and every replay output that a ``Columns`` plane reads
+        (each once) side by side on each device, out of which each step's
+        (E, Bb) plane is read (a ``Columns`` row that no longer decodes
+        keeps 0: harvest reads none)."""
         upto = min(upto, len(w.emitted))
         if upto <= w.n_host:
             return
         planes = w.emitted[w.n_host:upto]
-        # (E, k, Bb): each position's planes stacked on its device
-        host = self._fetch([torch.stack(pp, dim=1)
-                            for pp in zip(*planes)])
-        for k in range(len(planes)):
-            w.emitted[w.n_host + k] = host[:, k]
+        parts: List[List[torch.Tensor]] = []
+        at: Dict[int, int] = {}              # id of a part -> its column
+        width = 0
+        for pl in planes:
+            for x in (pl.planes if isinstance(pl, Columns) else [pl]):
+                if id(x) not in at:
+                    at[id(x)] = width
+                    width += x[0].shape[1]
+                    parts.append(x)
+        host = self._fetch([torch.cat([x[p].reshape(x[p].shape[0], -1)
+                                       for x in parts], dim=1)
+                            for p in range(len(self.devices))])
+        Bb = w.tok[0].shape[1]
+        for k, pl in enumerate(planes):
+            if isinstance(pl, Columns):
+                arr = np.zeros((self.n_experts, Bb), host.dtype)
+                for (e, i), (q, s) in pl.at.items():
+                    arr[e, i] = host[e, at[id(pl.planes[q])] + s]
+            else:
+                arr = host[:, at[id(pl)]:at[id(pl)] + Bb]
+            w.emitted[w.n_host + k] = arr
         w.n_host = upto
         self.stats.host_blocks += 1
         # the copy above completed everything enqueued for this wave, so

@@ -27,6 +27,21 @@ step updates in place.
   * **paged** waves keep their K/V in the engine's pool, whose address
     never changes; only the page table, ``pos``, ``t`` and the token
     plane are copied in (a few KB) and ``pos``/``t`` copied back out.
+  * **row slots** (``RowSlots``): a ring core whose model keeps a
+    constant-size decode state (``cache_capacity`` 1: RWKV6) reads no
+    position in decode, and each row's state is its own along the batch
+    axis, so rows of different waves can share one replay. When a
+    wave's prefill lands, each row that decodes is copied into a free
+    slot of a *group* of ``Bmax`` (the largest batch bucket) slots, and
+    the wave's cache is dropped. Every graph's static state is the
+    leading ``Bb`` rows of one ``Bmax``-row slab a position; a tick
+    replays each group with live rows once, at the smallest bucket that
+    covers its occupied slots. Rows are packed first (``RowSlots.pack``)
+    so that a tick replays ``ceil(live rows / Bmax)`` groups; the group
+    in the slab replays first, each other group swaps in as a resident
+    ring wave does. A finished row's slot is free at once (later copies
+    follow the replay on the stream); until reused it computes as
+    padding, never read.
 
 On CUDA the first step at a new bucket runs eagerly on a side stream
 (the wave's real step; it warms cuBLAS and the allocator), the second
@@ -66,9 +81,10 @@ say how many kernels ran.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -107,25 +123,28 @@ class _StepGraph:
     def _body(self) -> None:
         raise NotImplementedError
 
-    def _range(self, name: str, w):
+    def _range(self, name: str, w=None, **args):
         """The device range of one step of wave ``w``: its engine,
-        position, bucket, real rows, rows still short of their
-        ``max_new``, live cache slots after the step and the wave's step
-        index ``j``; ``eager`` / ``captured`` where the step runs
-        eagerly before its capture, or captures. The null range when the
-        tracer is off."""
+        position, bucket, the waves it carries (``waves``), real rows,
+        rows still short of their ``max_new``, live cache slots after the
+        step and the wave's step index ``j``; a row group's step gives
+        its own ``args`` instead of ``w``. ``eager`` / ``captured`` where
+        the step runs eagerly before its capture, or captures. The null
+        range when the tracer is off."""
         core = self.core
         tr = core.tracer
         if not tr.enabled:
             return NULL_RANGE
-        j = w.ticks
-        news = [m for ms in w.per_row_new.values() for m in ms]
-        live = sum(not d for ds in w.done.values() for d in ds) if w.spec \
-            else sum(m > j + 1 for m in news)
-        args = dict(engine=core.trace_engine, position=self.p,
-                    wave=w.wave_id, Bb=self.Bb, rows=len(news),
-                    live_rows=live, slots=min(w.Sb + j + 1, core.max_len),
-                    j=j)
+        if w is not None:
+            j = w.ticks
+            news = [m for ms in w.per_row_new.values() for m in ms]
+            live = sum(not d for ds in w.done.values() for d in ds) \
+                if w.spec else sum(m > j + 1 for m in news)
+            args = dict(wave=w.wave_id, waves=[w.wave_id], rows=len(news),
+                        live_rows=live,
+                        slots=min(w.Sb + j + 1, core.max_len), j=j)
+        args = dict(engine=core.trace_engine, position=self.p, Bb=self.Bb,
+                    **args)
         if self.capture and self.steps == 0:
             args["eager"] = True
         elif self.capture and self.graph is None:
@@ -223,6 +242,20 @@ class DecodeGraph(_StepGraph):
         if self.paged:
             self.pos = _i32((n, core.max_len), dev)
             self.t = _i32((n,), dev)
+        if core.row_slots is not None:
+            self.state = core.row_slots.slab_view(p, Bb)
+
+    def step_group(self, group, **args) -> torch.Tensor:
+        """One replay of row group ``group``, resident in the slab, over
+        its leading ``Bb`` slots: the group's token plane in, its next
+        tokens back into it. Returns the (E/n, Bb, 1) int32 plane in a
+        tensor of its own (harvest reads the waves' rows out of it)."""
+        tok = group.tok[self.p][:, :self.Bb]
+        with self._range("decode.replay", **args):
+            self.tok.copy_(tok)
+            self._run()
+            tok.copy_(self.out)
+            return self.out.clone()
 
     # -- the step --------------------------------------------------------
     def step(self, w) -> torch.Tensor:
@@ -296,3 +329,277 @@ class VerifyGraph(_StepGraph):
         self.out.copy_(self.core._verify(
             self.p, self.state, self.table if self.paged else None,
             self.pos, self.t, self.tok, self.cap, self.k))
+
+
+# ---------------------------------------------------------------------------
+# Row slots of a constant-state ring core
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Columns:
+    """A wave's tokens of one row-slot step: ``planes`` the step's replay
+    outputs (each a position's (E/n, Bb, 1) int32 plane; the waves of the
+    step share them) and ``at`` its decoding rows, (local expert, row) ->
+    (index into ``planes``, slot)."""
+    planes: List[List[torch.Tensor]]
+    at: Dict[Tuple[int, int], Tuple[int, int]]
+
+
+class _Group:
+    """``Bmax`` row slots of every member: the rows one replay steps.
+    ``occ[e][s]`` is the (wave, row) in member ``e``'s slot ``s`` (None
+    where free); ``tok`` each position's (E/n, Bmax, 1) int32 plane of
+    every slot's last token; ``store`` each position's state tree, which
+    holds the group's rows while another group holds the slab (None until
+    the group first leaves it)."""
+
+    def __init__(self, n_experts: int, Bmax: int, tok: List[torch.Tensor]):
+        self.occ: List[List[Any]] = [[None] * Bmax for _ in range(n_experts)]
+        self.tok = tok
+        self.store: Optional[List[Any]] = None
+
+    def count(self, e: Optional[int] = None) -> int:
+        """Occupied slots of member ``e`` (of every member: None)."""
+        occ = self.occ if e is None else [self.occ[e]]
+        return sum(o is not None for row in occ for o in row)
+
+    def top(self) -> int:
+        """One past the highest occupied slot of any member."""
+        return max((s + 1 for row in self.occ
+                    for s, o in enumerate(row) if o is not None), default=0)
+
+    def free(self, e: int, below: int) -> Optional[int]:
+        """Member ``e``'s lowest free slot below ``below`` (None: none)."""
+        return next((s for s in range(below) if self.occ[e][s] is None),
+                    None)
+
+
+def _runs(pairs: List[Tuple[int, int]]) -> List[Tuple[int, int, int]]:
+    """(row, slot) pairs -> (first row, first slot, length) runs in which
+    rows and slots both count up by one: one copy a run."""
+    out: List[List[int]] = []
+    for i, s in sorted(pairs):
+        if out and out[-1][0] + out[-1][2] == i \
+                and out[-1][1] + out[-1][2] == s:
+            out[-1][2] += 1
+        else:
+            out.append([i, s, 1])
+    return [tuple(r) for r in out]
+
+
+class RowSlots:
+    """The decode state of a ring core whose model keeps a constant-size
+    state: rows of any wave in slots of row groups, one slab a position
+    that every decode graph's static state is a leading view of (module
+    docstring). Copies (installs, packing moves, group swaps) are
+    enqueued outside any capture, each batch timed by a ``ring.swap``
+    range."""
+
+    def __init__(self, core):
+        self.core = core
+        self.Bmax = core.batch_buckets[-1]
+        one, two = (core.model.cache_shapes(b, 1) for b in (1, 2))
+        # each leaf's batch axis in the stacked (E/n, ...) trees; -1 for a
+        # leaf without one (a counter that the decode does not read, as
+        # RWKV6's ``t``: a group's rows share it)
+        self.axes = tree_map(
+            lambda a, b: next((k + 1 for k, (x, y) in
+                               enumerate(zip(a.shape, b.shape)) if x != y),
+                              -1), one, two)
+        self.slab: Optional[List[Any]] = None    # a position's tree each
+        self.groups: List[_Group] = []           # the slab's group first
+        self.resident: Optional[_Group] = None   # the group the slab holds
+
+    # -- storage ---------------------------------------------------------
+    def _zeros(self, dev) -> Any:
+        shapes = self.core.model.cache_shapes(self.Bmax, 1)
+        return tree_map(lambda x: torch.zeros(
+            (self.core.per_pos,) + tuple(x.shape), dtype=x.dtype,
+            device=dev), shapes)
+
+    def slab_view(self, p: int, Bb: int) -> Any:
+        """Position ``p``'s slab over its leading ``Bb`` slots: the
+        static state of the decode graph at bucket ``Bb``."""
+        return tree_map(lambda x, ax: x if ax < 0 else x.narrow(ax, 0, Bb),
+                        self.slab[p], self.axes)
+
+    def _home(self, g: _Group, p: int) -> Any:
+        """Where group ``g``'s rows live on position ``p``."""
+        if g is self.resident:
+            return self.slab[p]
+        if g.store is None:
+            g.store = [self._zeros(dev) for dev in self.core.devices]
+        return g.store[p]
+
+    def _copy(self, dst, src, d0: int, s0: int, k: int,
+              m: Optional[int] = None) -> None:
+        """Rows ``s0:s0+k`` of state tree ``src`` into rows ``d0:d0+k`` of
+        ``dst``: of member ``m``, or of every member (None)."""
+        for d, s, ax in zip(leaves(dst), leaves(src), leaves(self.axes)):
+            if ax >= 0 and m is not None:
+                d, s, ax = d[m], s[m], ax - 1
+            if ax >= 0:
+                d.narrow(ax, d0, k).copy_(s.narrow(ax, s0, k))
+
+    def _row_bytes(self) -> int:
+        return sum(x.numel() * x.element_size() // (self.Bmax
+                                                    * self.core.per_pos)
+                   for x, ax in zip(leaves(self.slab[0]), leaves(self.axes))
+                   if ax >= 0)
+
+    def _copies(self, **args):
+        """The host span and device range of one batch of row copies."""
+        tr = self.core.tracer
+        if not tr.enabled:
+            return NULL_RANGE, NULL_RANGE
+        return (tr.enqueue_span("ring.swap", **args),
+                tr.device_range("ring.swap", device=self.core.devices[0],
+                                **args))
+
+    def _new_group(self) -> _Group:
+        core = self.core
+        g = _Group(core.n_experts, self.Bmax,
+                   [_i32((core.per_pos, self.Bmax, 1), dev)
+                    for dev in core.devices])
+        if self.resident is None:
+            self.resident = g
+        self.groups.append(g)
+        return g
+
+    # -- rows in and out -------------------------------------------------
+    def install(self, w, caches: List[Any], tok: List[torch.Tensor]
+                ) -> None:
+        """Copy each row of wave ``w`` that decodes (``max_new`` > 1) out
+        of its prefill ``caches`` and first-token plane ``tok`` (a
+        position's each) into the lowest free slot, the slab's group
+        first; ``w.slots`` keeps where each went."""
+        core = self.core
+        if self.slab is None:
+            self.slab = [self._zeros(dev) for dev in core.devices]
+        runs: Dict[Tuple[int, _Group], List[Tuple[int, int]]] = {}
+        for e, ms in w.per_row_new.items():
+            for i, m in enumerate(ms):
+                if m < 2:
+                    continue
+                g = next((g for g in self.groups
+                          if g.free(e, self.Bmax) is not None), None) \
+                    or self._new_group()
+                s = g.free(e, self.Bmax)
+                g.occ[e][s] = (w, i)
+                w.slots[(e, i)] = (g, s)
+                runs.setdefault((e, g), []).append((i, s))
+        n = sum(map(len, runs.values()))
+        if not n:
+            return
+        span, rng = self._copies(rows_installed=n,
+                                 bytes_in=n * self._row_bytes())
+        with span, rng:
+            for (e, g), pairs in runs.items():
+                p, m = divmod(e, core.per_pos)
+                for i0, s0, k in _runs(pairs):
+                    self._copy(self._home(g, p), caches[p], s0, i0, k, m)
+                    g.tok[p][m, s0:s0 + k].copy_(tok[p][m, i0:i0 + k])
+        core.stats.rows_installed += n
+
+    def pack(self) -> None:
+        """Before a step: move rows so that ``ceil(live rows of the
+        fullest member / Bmax)`` groups hold them all (the fullest kept,
+        the slab's group first among equals: the fewest moves), each in
+        its leading slots up to the bucket its fullest member needs;
+        groups left empty go, the slab's too (the next swap then copies
+        nothing out)."""
+        core = self.core
+        E, B = core.n_experts, self.Bmax
+        need = max(-(-sum(g.count(e) for g in self.groups) // B)
+                   for e in range(E)) if self.groups else 0
+        keep = sorted(self.groups, key=lambda g: (-g.count(),
+                                                  g is not self.resident)
+                      )[:need]
+        moves = []                           # (e, from, slot, to, slot)
+
+        def move(e, g, s, h, d):
+            w, i = g.occ[e][s]
+            g.occ[e][s], h.occ[e][d] = None, (w, i)
+            w.slots[(e, i)] = (h, d)
+            moves.append((e, g, s, h, d))
+
+        for g in self.groups:
+            if g in keep:
+                continue
+            for e in range(E):
+                for s in range(B):
+                    if g.occ[e][s] is not None:
+                        h = next(h for h in keep if h.free(e, B) is not None)
+                        move(e, g, s, h, h.free(e, B))
+        for g in keep:
+            top = next(b for b in core.batch_buckets
+                       if b >= max(g.count(e) for e in range(E)))
+            for e in range(E):
+                for s in range(top, B):
+                    if g.occ[e][s] is not None:
+                        move(e, g, s, g, g.free(e, top))
+        if moves:
+            span, rng = self._copies(rows_moved=len(moves),
+                                     bytes_in=len(moves) * self._row_bytes())
+            with span, rng:
+                for e, g, s, h, d in moves:
+                    p, m = divmod(e, core.per_pos)
+                    self._copy(self._home(h, p), self._home(g, p), d, s, 1, m)
+                    h.tok[p][m, d].copy_(g.tok[p][m, s])
+        if self.resident not in keep:
+            self.resident = None
+        self.groups = sorted(keep, key=lambda g: g is not self.resident)
+
+    def _swap_in(self, g: _Group) -> None:
+        """Make ``g`` the slab's group: the resident's occupied leading
+        slots copied out to its store, ``g``'s copied in."""
+        core = self.core
+        r, self.resident = self.resident, None
+        hi_out, hi_in = (r.top() if r is not None else 0), g.top()
+        args = {}
+        if core.tracer.enabled:
+            rb = self._row_bytes()
+            args = dict(bytes_out=hi_out * rb, bytes_in=hi_in * rb)
+        span, rng = self._copies(**args)
+        with span, rng:
+            for p in range(len(core.devices)):
+                if hi_out:
+                    self._copy(self._home(r, p), self.slab[p], 0, 0, hi_out)
+                self._copy(self.slab[p], self._home(g, p), 0, 0, hi_in)
+        self.resident = g
+        core.stats.decode_swaps += 1
+
+    def step(self, waves: List[Any], graphs) -> List[Columns]:
+        """One decode step of ``waves``, whose decoding rows are all in
+        slots: pack, then replay every group with rows once (the slab's
+        first; ``graphs(Bb)`` gives a bucket's graphs, one a position),
+        then free the slots of rows that have their last token. Returns
+        each wave's ``Columns`` of the step."""
+        core = self.core
+        self.pack()
+        order = self.groups
+        planes: List[List[torch.Tensor]] = []
+        for g in order:
+            if g is not self.resident:
+                self._swap_in(g)
+            Bb = next(b for b in core.batch_buckets if b >= g.top())
+            args = {}
+            if core.tracer.enabled:
+                args = dict(waves=sorted({o[0].wave_id for row in g.occ
+                                          for o in row if o is not None}),
+                            rows=g.count())
+            planes.append([gr.step_group(g, **args) for gr in graphs(Bb)])
+            core.stats.decode_replays += 1
+        index = {g: k for k, g in enumerate(order)}
+        out = []
+        for w in waves:
+            out.append(Columns(planes, {r: (index[g], s)
+                                        for r, (g, s) in w.slots.items()}))
+            for (e, i), (g, s) in list(w.slots.items()):
+                if w.per_row_new[e][i] - 2 == w.ticks:   # its last token
+                    g.occ[e][s] = None
+                    del w.slots[(e, i)]
+        # the last group replayed holds the slab: it goes first next step
+        self.groups = order[-1:] + order[:-1]
+        return out

@@ -236,7 +236,7 @@ class Scheduler:
         self._counters: Dict[str, Counter] = {
             f.name: Counter() for f in dataclasses.fields(SchedulerStats)}
         self._steps = 0
-        self._step_waves = self._step_rows = 0    # this step's, traced
+        self._step_waves = self._step_rows = self._step_replays = 0
         self._alloc_dev: Optional[torch.device] = None
         self._alloc_prev: Optional[Dict[str, int]] = None
         self._done: List[Response] = []
@@ -417,7 +417,7 @@ class Scheduler:
         """One round (``sched.step``, its phases children of it); the
         tracer then folds the device ranges that have completed."""
         tr = self.tracer
-        self._step_waves = self._step_rows = 0
+        self._step_waves = self._step_rows = self._step_replays = 0
         with tr.enqueue_span("sched.step", step=self._steps) as sp:
             self.executor.run_step(self)
             with tr.enqueue_span("sched.emit"):
@@ -426,6 +426,7 @@ class Scheduler:
             self._counters["responses"].inc(len(out))
             if tr.enabled:
                 sp.set(waves_ticked=self._step_waves,
+                       replays=self._step_replays,
                        rows_admitted=self._step_rows, responses=len(out),
                        **self._alloc_deltas())
                 tr.collect()
@@ -763,7 +764,9 @@ class Scheduler:
         for shard in self.shards:
             eng = self._shard_engine(shard)
             if eng is not None and eng.n_active:
+                r0 = eng.core.stats.decode_replays
                 self._step_waves += eng.tick(defer=defer)
+                self._step_replays += eng.core.stats.decode_replays - r0
                 self._counters["ticks"].inc()
 
     def _harvest_engines(self) -> None:

@@ -137,7 +137,10 @@ def _held_to_reference(bank, fleets, archs, executor, budget=0, **kw):
                 jb, tb = before[e][k]
                 assert getattr(c.stats, k) - tb == \
                     getattr(jreg[e].backend.stats, k) - jb, (k, e)
-            assert set(c._graphs) == {2, 1}
+            # waves of 2, 2 and 1 rows: buckets 2 and 1, one wave a replay;
+            # a constant-state core's rows share replays (row slots), in
+            # groups of up to five rows: buckets 4 and 2
+            assert set(c._graphs) == ({4, 2} if c.row_slots else {2, 1})
             assert c.stats.decode_compiles <= \
                 c.executable_bounds()["decode"]
             assert c.stats.decode_captured == 0
@@ -171,7 +174,14 @@ def test_mixed_rwkv_server_matches_reference(bank, fleets, executor):
     (got, again), cores = _held_to_reference(
         bank, fleets, ("rwkv6_7b", "llama3_2_1b"), executor)
     assert cores[0].model.cfg.family == "rwkv"
-    assert all(c.stats.decode_swaps > 0 for c in cores)
+    # the dense core's two waves at bucket 2 swap through its graph; the
+    # RWKV core's rows share one group of slots, so it swaps nothing and
+    # replays less often than its waves step
+    rwkv, dense = cores
+    assert dense.stats.decode_swaps > 0
+    assert rwkv.stats.decode_swaps == 0
+    assert 0 < rwkv.stats.decode_replays < rwkv.stats.decode_steps
+    assert rwkv.stats.rows_installed > 0
     for g, a in zip(got, again):
         np.testing.assert_array_equal(g.tokens, a.tokens)
 
@@ -302,6 +312,144 @@ def test_add_launches_adds_and_takes_back():
 
 
 # ---------------------------------------------------------------------------
+# Row slots: the rows of a constant-state core's waves share replays
+# ---------------------------------------------------------------------------
+
+#: (uids, prompt lengths, max_new) of three waves of length buckets 8, 16
+#: and 32, admitted in successive steps; with a largest batch bucket of 4,
+#: up to nine rows decode at once, so packing, swaps and slot reuse all run
+SLOT_WAVES = [([0, 1, 2], (5, 3, 6), (6, 3, 5)),
+              ([3, 4, 5, 6], (12, 10, 14, 9), (4, 7, 2, 5)),
+              ([7, 8], (28, 20), (6, 1))]
+SLOT_BUCKETS = (1, 2, 4)
+
+
+def _slot_waves(seed=9):
+    rng = np.random.default_rng(seed)
+    return [(uids, [rng.integers(0, 300, size=n).astype(np.int32)
+                    for n in lens], list(news))
+            for uids, lens, news in SLOT_WAVES]
+
+
+def _decoding(core) -> int:
+    """Rows that decode in the next step: a row of a wave at step j needs
+    it while its max_new exceeds j + 1."""
+    return sum(m > w.ticks + 1 for w in core._active if w.steps_left > 0
+               for ms in w.per_row_new.values() for m in ms)
+
+
+def _drive_successive(eng, waves, *, defer, core=None):
+    """Admit one wave a step, tick every step, harvest; ``core`` (the
+    port's): each tick's (replays, rows decoding, waves ticked)."""
+    pending, ticks = list(waves), []
+    while pending or eng.n_active:
+        if pending:
+            eng.admit(*pending.pop(0), defer=defer)
+        if core is not None:
+            live, r0 = _decoding(core), core.stats.decode_replays
+        n = eng.tick(defer=defer)
+        if core is not None:
+            ticks.append((core.stats.decode_replays - r0, live, n))
+        eng.harvest()
+    return dict(eng.poll()), ticks
+
+
+@pytest.mark.parametrize("defer", [False, True])
+def test_row_slots_merge_waves_and_match_reference(defer):
+    """A reduced RWKV6 core: waves of three length buckets admitted in
+    successive steps decode together. Each tick replays at most
+    ceil(rows decoding / largest bucket) times, fewer than the waves it
+    steps once they overlap; every row's tokens, ``decode_steps`` and
+    ``host_blocks`` equal the reference's (one replay a wave); the
+    ladder stays within ``executable_bounds()``."""
+    jmod = build_model(get_config("rwkv6_7b").reduced(name="slots"))
+    params = trained_like(jax.device_get(jmod.init(jax.random.PRNGKey(50))),
+                          seed=5)
+    kw = dict(max_len=MAX_LEN, batch_buckets=SLOT_BUCKETS)
+    jeng = ExpertEngine(jmod, params, **kw)
+    teng = tserve.ExpertEngine(
+        tbuild(tget("rwkv6_7b").reduced(name="slots")),
+        to_torch(params, device="cpu"), device="cpu", **kw)
+    core = teng.core
+    assert core.row_slots is not None
+    waves = _slot_waves()
+    want, _ = _drive_successive(jeng, waves, defer=defer)
+    got, ticks = _drive_successive(teng, waves, defer=defer, core=core)
+    assert got.keys() == want.keys() == {u for w in SLOT_WAVES for u in w[0]}
+    for u in want:
+        np.testing.assert_array_equal(got[u], want[u], err_msg=str(u))
+    Bmax = SLOT_BUCKETS[-1]
+    for replays, live, n in ticks:
+        assert replays <= -(-live // Bmax), ticks
+    assert max(live for _, live, _ in ticks) > Bmax     # groups swapped
+    assert any(r < n for r, _, n in ticks)              # waves merged
+    st, jst = core.stats, jeng.stats
+    assert (st.decode_steps, st.host_blocks) == (jst.decode_steps,
+                                                  jst.host_blocks)
+    assert st.decode_replays == sum(r for r, _, _ in ticks) < st.decode_steps
+    assert st.rows_installed == sum(m > 1 for w in SLOT_WAVES for m in w[2])
+    assert st.decode_swaps > 0
+    assert st.decode_compiles <= core.executable_bounds()["decode"]
+    assert set(st.decode_graphs) <= set(SLOT_BUCKETS)
+    assert not any(g.count() for g in core.row_slots.groups)  # all free
+
+
+def test_row_slot_replays_name_their_waves(bank, fleets):
+    """Traced, the mixed RWKV + dense server: one ``decode.replay`` range
+    a replay, each naming the waves it carries and its decoding rows (an
+    RWKV range carries rows of more than one wave), the RWKV core's
+    installs under ``ring.swap``, and each ``sched.step`` the replays it
+    ran."""
+    from repro_torch.obs.trace import Tracer
+    jm, tm, feats = bank
+    _, treg = fleets(("rwkv6_7b", "llama3_2_1b"))
+    tsrv = tserve.RoutedServer(tm, treg, max_batch=2, executor="overlapped",
+                               device="cpu")
+    cores = [treg[e].backend.core for e in range(len(NAMES))]
+    before = [c.stats.as_dict() for c in cores]
+    tr = Tracer(enabled=True)
+    tsrv.bind_tracer(tr)
+    try:
+        tsrv.serve([tserve.Request(u, f, p, m) for u, f, p, m in
+                    _traffic(feats, seed=2, uid0=200)])
+        recs = tr.records()
+    finally:
+        tsrv.bind_tracer(None)
+    delta = [{k: c.stats.as_dict()[k] - b[k] for k in b
+              if isinstance(b[k], int)} for c, b in zip(cores, before)]
+    replays = [r for r in recs if r["name"] == "decode.replay"]
+    assert len(replays) == sum(d["decode_replays"] for d in delta)
+    assert sum(r["args"]["replays"] for r in recs
+               if r["name"] == "sched.step") == len(replays)
+    rwkv = [r["args"] for r in replays if r["args"]["engine"] == 0]
+    assert len(rwkv) == delta[0]["decode_replays"] < delta[0]["decode_steps"]
+    assert all(a["waves"] and a["rows"] >= 1 for a in rwkv)
+    assert max(len(a["waves"]) for a in rwkv) > 1
+    assert sum(r["args"].get("rows_installed", 0) for r in recs
+               if r["name"] == "ring.swap" and r["cat"] == "device") \
+        == delta[0]["rows_installed"] > 0
+    dense = [r["args"] for r in replays if r["args"]["engine"] == 1]
+    assert len(dense) == delta[1]["decode_steps"]
+    assert all(a["waves"] == [a["wave"]] for a in dense)
+
+
+@pytest.mark.parametrize("layout,spec", [("ring", 0), ("paged", 0),
+                                         ("ring", 2)])
+def test_cores_with_positions_never_merge(layout, spec):
+    """Dense ring waves (K/V rings with a shared ``pos``/``t``), paged
+    waves and speculative waves keep one replay a wave step: no row
+    slots, ``decode_replays == decode_steps``."""
+    kw = dict(speculate_k=spec, draft="table") if spec else {}
+    eng = _engine(seed=11, kv_layout=layout, **kw)
+    assert eng.core.row_slots is None
+    _run(eng, _waves(seed=12), defer=True)
+    st = eng.stats
+    assert st.decode_steps > 0 and st.decode_replays == st.decode_steps
+    assert st.rows_installed == 0
+    assert (st.verify_steps > 0) == bool(spec)
+
+
+# ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
 
@@ -325,8 +473,9 @@ def test_cuda_graph_tokens_equal_eager_and_launches_count_replays(
         cuda, arch, layout, kernel):
     """Three waves at bucket 2 (swaps on the ring) through captured
     graphs, and through the eager step on the same weights: equal tokens,
-    one graph captured, and ``kernel`` counted n_layers x steps with the
-    replays."""
+    and ``kernel`` counted n_layers x replays with the replays. One wave a
+    replay and one graph captured, except on RWKV6, whose rows share
+    replays (row slots): fewer replays than wave steps."""
     waves = _waves(seed=6)
     out = {}
     for capture in (True, False):
@@ -336,16 +485,54 @@ def test_cuda_graph_tokens_equal_eager_and_launches_count_replays(
         ops.reset_launches()
         out[capture] = _run(eng, waves, defer=True)
         torch.cuda.synchronize()
-        steps = eng.stats.decode_steps - steps0
-        assert ops.launches()[kernel] == eng.model.cfg.n_layers * steps
-        assert eng.stats.decode_compiles == 1
-        assert eng.stats.decode_captured == int(capture)
+        st = eng.stats
+        steps = st.decode_steps - steps0
+        assert ops.launches()[kernel] == \
+            eng.model.cfg.n_layers * st.decode_replays
+        if eng.core.row_slots is None:
+            assert st.decode_replays == steps
+            assert st.decode_compiles == 1
+            assert st.decode_captured == int(capture)
+        else:
+            assert st.decode_replays < steps
+            assert (st.decode_captured > 0) == capture
     for u in out[False]:
         np.testing.assert_array_equal(out[True][u], out[False][u],
                                       err_msg=str(u))
     cpu = _engine(arch, seed=7, kv_layout=layout)
     cpu.core.params = [_to(eng.params, "cpu")]
     want = _run(cpu, waves, defer=False)
+    for u in want:
+        np.testing.assert_array_equal(out[True][u], want[u], err_msg=str(u))
+
+
+@pytest.mark.cuda
+def test_cuda_row_slot_replays_equal_eager_and_count_launches(cuda):
+    """Waves of three length buckets admitted in successive steps on a
+    reduced RWKV6 core: captured merged replays (packing, swaps, slot
+    reuse) give the eager replays' tokens and the CPU's, and ``wkv_step``
+    counts n_layers x replays."""
+    waves = _slot_waves()
+    out = {}
+    for capture in (True, False):
+        eng = _engine("rwkv6_7b", seed=13, device=cuda,
+                      capture_decode=capture, batch_buckets=SLOT_BUCKETS)
+        ops.reset_launches()
+        out[capture], _ = _drive_successive(eng, waves, defer=True,
+                                            core=eng.core)
+        torch.cuda.synchronize()
+        st = eng.stats
+        assert ops.launches()["wkv_step"] == \
+            eng.model.cfg.n_layers * st.decode_replays
+        assert 0 < st.decode_replays < st.decode_steps
+        assert st.decode_swaps > 0
+        assert (st.decode_captured > 0) == capture
+    for u in out[False]:
+        np.testing.assert_array_equal(out[True][u], out[False][u],
+                                      err_msg=str(u))
+    cpu = _engine("rwkv6_7b", seed=13, batch_buckets=SLOT_BUCKETS)
+    cpu.core.params = [_to(eng.params, "cpu")]
+    want, _ = _drive_successive(cpu, waves, defer=False)
     for u in want:
         np.testing.assert_array_equal(out[True][u], want[u], err_msg=str(u))
 
